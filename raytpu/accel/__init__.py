@@ -1,10 +1,10 @@
 """Acceleration structures: BVH builders + scene attachment.
 
-The TPU-native BLAS/TLAS layer (reference: driver-built structures at
-``src/main.cpp:495-498,730-733``). ``attach_bvh`` builds one threaded BVH per
-mesh on the host, concatenates node/triangle arrays, and records static
-per-mesh ranges; the scene-level tracer (``raytpu/ops/trace.py``) then routes
-through BVH traversal instead of brute force.
+The BLAS/TLAS layer (reference: driver-built structures at
+``src/main.cpp:495-498,730-733``). ``attach_bvh`` builds one threaded BVH
+per mesh on the host, concatenates node/triangle arrays, records static
+per-mesh ranges and resolves which walk the scene-level tracer
+(``raytpu/ops/trace.py``) uses.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ import dataclasses
 
 from typing import Tuple
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -20,7 +21,29 @@ from raytpu.accel.bvh import Bvh, build_bvh, validate_bvh
 from raytpu.device_scene import DeviceScene, SceneStatic
 from raytpu.scene import Scene
 
-__all__ = ["Bvh", "build_bvh", "validate_bvh", "attach_bvh"]
+__all__ = ["Bvh", "build_bvh", "validate_bvh", "attach_bvh",
+           "resolve_traversal"]
+
+TRAVERSALS = ("auto", "kernel", "xla", "brute")
+
+
+def resolve_traversal(requested: str, platform: str | None = None) -> str:
+    """``RenderConfig.traversal`` → the walk a scene uses.
+
+    ``"auto"`` follows the platform: the traversal kernel on ``gpu``, the
+    XLA packet walk on ``cpu`` (the test platform). Any other platform is
+    an error rather than a silent fallback."""
+    if requested not in TRAVERSALS:
+        raise ValueError(
+            f"unknown traversal {requested!r}; use one of {TRAVERSALS}")
+    if requested != "auto":
+        return requested
+    platform = platform or jax.default_backend()
+    if platform == "gpu":
+        return "kernel"
+    if platform == "cpu":
+        return "xla"
+    raise ValueError(f"no traversal for platform {platform!r}")
 
 
 def attach_bvh(
@@ -37,22 +60,17 @@ def attach_bvh(
     ids so shading attribute fetch (normals) is unchanged.
     """
     cfg = scene.config
+    traversal = resolve_traversal(cfg.traversal)
     if method is None:
         method = cfg.bvh_builder
     if method in ("auto", "native"):
         # native C++ builder preferred when built; SAH otherwise
-        try:
-            from raytpu.accel import native as native_accel
+        from raytpu.accel import native as native_accel
 
-            if native_accel.available():
-                method = "native"
-            else:
-                method = "sah"
-        except ImportError:
-            method = "sah"
+        method = "native" if native_accel.available() else "sah"
     if leaf_size is None:
         leaf_size = cfg.leaf_size
-    from raytpu.ops.traverse import LEAF_UNROLL
+    from raytpu.ops.intersect import LEAF_UNROLL
 
     if leaf_size > LEAF_UNROLL:
         raise ValueError(
@@ -74,257 +92,63 @@ def attach_bvh(
             return build_lbvh(v0, e1, e2, leaf_size=leaf_size)
         return build_bvh(v0, e1, e2, leaf_size=leaf_size, method=method)
 
-    from raytpu.accel.chunking import chunk_order, needs_chunking
-
     node_min, node_max, tri_first, tri_count, miss = [], [], [], [], []
     bvh_v0, bvh_e1, bvh_e2, bvh_prim = [], [], [], []
     node_ranges, tri_ranges = [], []
-    # logical mesh → list of traversal-mesh ids (chunks)
-    mesh_chunks = []
-    mega_chunks = []  # per-chunk table dicts for the megakernel packing
     node_acc = tri_acc = 0
-    n_soa_global = np.asarray(dev.tri_n_soa)  # (9, T_global), prim-ordered
 
-    for mesh_id, (start, count) in enumerate(static.mesh_prim_ranges):
+    for start, count in static.mesh_prim_ranges:
         v0 = v0_all[start : start + count]
         e1 = e1_all[start : start + count]
         e2 = e2_all[start : start + count]
+        bvh = build(v0, e1, e2)
+        node_ranges.append((node_acc, bvh.num_nodes))
+        tri_ranges.append((tri_acc, bvh.num_triangles))
+        node_acc += bvh.num_nodes
+        tri_acc += bvh.num_triangles
 
-        ct = cfg.chunk_tris or None  # 0 = SMEM-sized default
-        if (ct and count > ct) or needs_chunking(count, leaf_size):
-            # chunked BLAS: Morton-split into SMEM-resident sub-BVHs
-            m_order, ranges = chunk_order(v0, e1, e2, chunk_tris=ct)
-            pieces = [
-                (m_order[s : s + c],) for (s, c) in ranges
-            ]
-        else:
-            pieces = [(np.arange(count, dtype=np.int64),)]
+        node_min.append(bvh.aabb_min)
+        node_max.append(bvh.aabb_max)
+        tri_first.append(bvh.tri_first)
+        tri_count.append(bvh.tri_count)
+        miss.append(bvh.miss)
+        order = bvh.tri_order.astype(np.int64)
+        bvh_v0.append(v0[order])
+        bvh_e1.append(e1[order])
+        bvh_e2.append(e2[order])
+        bvh_prim.append((order + start).astype(np.int32))
 
-        chunk_ids = []
-        for (sel,) in pieces:
-            cv0, ce1, ce2 = v0[sel], e1[sel], e2[sel]
-            bvh = build(cv0, ce1, ce2)
-            chunk_ids.append(len(node_ranges))
-            node_ranges.append((node_acc, bvh.num_nodes))
-            tri_ranges.append((tri_acc, bvh.num_triangles))
-            node_acc += bvh.num_nodes
-            tri_acc += bvh.num_triangles
+    arrays = dict(
+        bvh_aabb_min=np.concatenate(node_min),
+        bvh_aabb_max=np.concatenate(node_max),
+        bvh_tri_first=np.concatenate(tri_first),
+        bvh_tri_count=np.concatenate(tri_count),
+        bvh_miss=np.concatenate(miss),
+        bvh_tri_v0=np.concatenate(bvh_v0),
+        bvh_tri_e1=np.concatenate(bvh_e1),
+        bvh_tri_e2=np.concatenate(bvh_e2),
+        bvh_tri_prim=np.concatenate(bvh_prim),
+    )
+    from raytpu.ops.bvh_kernel import pack_tables
 
-            node_min.append(bvh.aabb_min)
-            node_max.append(bvh.aabb_max)
-            tri_first.append(bvh.tri_first)
-            tri_count.append(bvh.tri_count)
-            miss.append(bvh.miss)
-            order = bvh.tri_order.astype(np.int64)
-            bvh_v0.append(cv0[order])
-            bvh_e1.append(ce1[order])
-            bvh_e2.append(ce2[order])
-            # → global prim id through the chunk's Morton selection
-            bvh_prim.append((sel[order] + start).astype(np.int32))
-            mega_chunks.append({
-                "aabb_min": bvh.aabb_min, "aabb_max": bvh.aabb_max,
-                "first": bvh.tri_first, "count": bvh.tri_count,
-                "miss": bvh.miss,
-                "v0": cv0[order], "e1": ce1[order], "e2": ce2[order],
-                "n_soa": n_soa_global[:, sel[order] + start],
-            })
-        mesh_chunks.append(tuple(chunk_ids))
-
-    prim_all = np.concatenate(bvh_prim).astype(np.int64)
-    bvh_n_soa = np.ascontiguousarray(n_soa_global[:, prim_all])  # (9, T_bvh)
-
+    prim = arrays["bvh_tri_prim"].astype(np.int64)
+    kernel_tables = pack_tables(
+        arrays["bvh_aabb_min"], arrays["bvh_aabb_max"],
+        arrays["bvh_tri_first"], arrays["bvh_tri_count"],
+        arrays["bvh_miss"], node_ranges, tri_ranges,
+        arrays["bvh_tri_v0"], arrays["bvh_tri_e1"], arrays["bvh_tri_e2"],
+        np.asarray(dev.tri_n_soa)[:, prim],
+    )
     dev = dev._replace(
-        bvh_tri_n_soa=jnp.asarray(bvh_n_soa),
-        bvh_aabb_min=jnp.asarray(np.concatenate(node_min)),
-        bvh_aabb_max=jnp.asarray(np.concatenate(node_max)),
-        bvh_tri_first=jnp.asarray(np.concatenate(tri_first)),
-        bvh_tri_count=jnp.asarray(np.concatenate(tri_count)),
-        bvh_miss=jnp.asarray(np.concatenate(miss)),
-        bvh_tri_v0=jnp.asarray(np.concatenate(bvh_v0)),
-        bvh_tri_e1=jnp.asarray(np.concatenate(bvh_e1)),
-        bvh_tri_e2=jnp.asarray(np.concatenate(bvh_e2)),
-        bvh_tri_prim=jnp.asarray(np.concatenate(bvh_prim)),
+        kernel_tables=kernel_tables,
+        **{k: jnp.asarray(v) for k, v in arrays.items()},
     )
-    from raytpu.ops.traverse_pallas import fits_smem
-
-    # flattened (instance, traversal-mesh) loop list for the tracer:
-    # each instance contributes every chunk of its logical mesh
-    trav_instances = tuple(
-        (inst_id, chunk)
-        for inst_id, mesh_id in enumerate(static.instance_mesh)
-        for chunk in mesh_chunks[mesh_id]
-    )
-
-    # the Pallas kernels pad every chunk's tables to the cross-chunk MAX
-    # sizes (one compiled kernel serves all chunks), so SMEM fitness must be
-    # judged on the padded sizes, not per chunk
-    max_nodes = max((n for _, n in node_ranges), default=0)
-    max_tris = max((t for _, t in tri_ranges), default=0)
-    padded_fit = fits_smem(max_nodes, max_tris)
-
-    # megakernel tables (ops/mega.py): packed whenever the padded chunk
-    # tables fit the kernel's SMEM scratch budget
-    mega_layout = None
-    if padded_fit and mega_chunks:
-        from raytpu.ops.mega import OCTANTS, pack_mega_tables
-
-        mf32, mi32, moct, mroot, (pad_n, pad_t) = pack_mega_tables(
-            mega_chunks
-        )
-        f32_len = mf32.size // len(mega_chunks)
-        i32_len = mi32.size // len(mega_chunks)
-        oct_len = moct.size // (len(mega_chunks) * OCTANTS)
-        if (f32_len + i32_len + oct_len) * 4 <= 960 * 1024:
-            dev = dev._replace(
-                mega_f32=jnp.asarray(mf32),
-                mega_i32=jnp.asarray(mi32),
-                mega_oct=jnp.asarray(moct),
-                mega_root=jnp.asarray(mroot),
-            )
-            mega_layout = (pad_n, pad_t, f32_len, i32_len)
-
-    # anyhit-specialized chunk set (ops/mega.py MegaLayout normals=False):
-    # an independent, coarser Morton partition per mesh — occlusion is an
-    # order-independent OR over triangles, so the different partition is
-    # bit-identical by construction (see mega_anyhit_sweep)
-    mega_shadow_layout = None
-    shadow_trav = ()
-    if mega_layout is not None:
-        from raytpu.accel.chunking import CHUNK_TRIS_SHADOW
-        from raytpu.ops.mega import OCTANTS, pack_mega_tables
-
-        sh_chunks = []
-        mesh_sh_chunks = []
-        for mesh_id, (start, count) in enumerate(static.mesh_prim_ranges):
-            v0 = v0_all[start : start + count]
-            e1 = e1_all[start : start + count]
-            e2 = e2_all[start : start + count]
-            if count > CHUNK_TRIS_SHADOW:
-                m_order, ranges = chunk_order(
-                    v0, e1, e2, chunk_tris=CHUNK_TRIS_SHADOW
-                )
-                pieces = [m_order[s : s + c] for (s, c) in ranges]
-            else:
-                pieces = [np.arange(count, dtype=np.int64)]
-            ids = []
-            for sel in pieces:
-                bvh = build(v0[sel], e1[sel], e2[sel])
-                order = bvh.tri_order.astype(np.int64)
-                ids.append(len(sh_chunks))
-                sh_chunks.append({
-                    "aabb_min": bvh.aabb_min, "aabb_max": bvh.aabb_max,
-                    "first": bvh.tri_first, "count": bvh.tri_count,
-                    "miss": bvh.miss,
-                    "v0": v0[sel][order], "e1": e1[sel][order],
-                    "e2": e2[sel][order],
-                })
-            mesh_sh_chunks.append(tuple(ids))
-        sf32, si32, soct, sroot, (spad_n, spad_t) = pack_mega_tables(
-            sh_chunks, normals=False
-        )
-        sf32_len = sf32.size // len(sh_chunks)
-        si32_len = si32.size // len(sh_chunks)
-        soct_len = soct.size // (len(sh_chunks) * OCTANTS)
-        if (sf32_len + si32_len + soct_len) * 4 <= 960 * 1024:
-            dev = dev._replace(
-                mega_sh_f32=jnp.asarray(sf32),
-                mega_sh_i32=jnp.asarray(si32),
-                mega_sh_oct=jnp.asarray(soct),
-                mega_sh_root=jnp.asarray(sroot),
-            )
-            mega_shadow_layout = (spad_n, spad_t, sf32_len, si32_len)
-            shadow_trav = tuple(
-                (inst_id, chunk)
-                for inst_id, mesh_id in enumerate(static.instance_mesh)
-                for chunk in mesh_sh_chunks[mesh_id]
-            )
-
-    # two-level per-lane traversal tables (ops/perlane.py) — built from
-    # the SAME chunk partitions as the mega tables (they share the oct
-    # ordering + prepass roots). TPU-only (the kernel needs compiled DMA
-    # + gather semantics), and the banks are a few hundred MB of HBM, so
-    # only pack when the tier can actually run.
-    perlane_layout = None
-    perlane_shadow_layout = None
-    total_tris = sum(c for _, c in static.mesh_prim_ranges)
-    auto_tier = resolve_auto_tier(
-        total_tris, cfg.samples_per_pixel, cfg.max_bounce_count
-    )
-    if mega_layout is not None and _perlane_wanted(cfg, auto_tier):
-        from raytpu.ops.perlane import (PAIR_DEFAULT, PAIR_QBITS,
-                                    QUAD_DEFAULT, pack_perlane_tables)
-
-        tabs, perlane_layout = pack_perlane_tables(
-            mega_chunks, normals=True,
-            pair=PAIR_DEFAULT and not QUAD_DEFAULT,
-            qbits=PAIR_QBITS, quad=QUAD_DEFAULT)
-        dev = dev._replace(
-            pl_box=jnp.asarray(tabs["box"]),
-            pl_tid=jnp.asarray(tabs["tid"]),
-            pl_qsc=jnp.asarray(tabs["qsc"]),
-            pl_planes=jnp.asarray(tabs["planes"]),
-            pl_links=jnp.asarray(tabs["links"]),
-            pl_mt=jnp.asarray(tabs["mt"]),
-        )
-        if mega_shadow_layout is not None:
-            sh_tabs, perlane_shadow_layout = pack_perlane_tables(
-                sh_chunks, normals=False,
-                pair=PAIR_DEFAULT and not QUAD_DEFAULT,
-                qbits=PAIR_QBITS, quad=QUAD_DEFAULT,
-            )
-            dev = dev._replace(
-                pl_sh_box=jnp.asarray(sh_tabs["box"]),
-                pl_sh_tid=jnp.asarray(sh_tabs["tid"]),
-                pl_sh_qsc=jnp.asarray(sh_tabs["qsc"]),
-                pl_sh_planes=jnp.asarray(sh_tabs["planes"]),
-                pl_sh_links=jnp.asarray(sh_tabs["links"]),
-                pl_sh_mt=jnp.asarray(sh_tabs["mt"]),
-            )
 
     # replace() keeps every field not owned by the BVH stage (e.g. sky_hw)
     static_out = dataclasses.replace(
         static,
         mesh_node_ranges=tuple(node_ranges),
         mesh_bvh_tri_ranges=tuple(tri_ranges),
-        traversal=cfg.traversal,
-        mesh_pallas_ok=tuple(padded_fit for _ in node_ranges),
-        trav_instances=trav_instances,
-        mega_layout=mega_layout,
-        mega_shadow_layout=mega_shadow_layout,
-        shadow_traversal_list=shadow_trav,
-        perlane_layout=perlane_layout,
-        perlane_shadow_layout=perlane_shadow_layout,
-        auto_tier=auto_tier,
+        traversal=traversal,
     )
     return dev, static_out
-
-
-def resolve_auto_tier(total_tris: int, spp: int, bounces: int) -> str:
-    """traversal="auto" tier on TPU, from the measured preset A/B table
-    (tools/r4_ab_defaults.py, tools/r4_hybrid_ab.py; docs/roadmap.md
-    round-3b): the two-level per-lane tier (ops/perlane.py) beats the
-    consensus megakernel where walks are long or scattered — large
-    meshes (config4 163.7 vs 184.4 ms; the 63-bounce reference preset
-    86.8 vs 110.8) and spp=1 divergent-bounce scenes (config5 32.3 vs
-    34.7) — while small coherent spp>1 scenes stay faster on the
-    megakernel (config2 27.3 vs 28.4, config3 54.2 vs 58.3; routing
-    even just the primary sweeps per-lane loses there: hybrid 28.8 on
-    config2). The cut below encodes that table; traversal="mega" /
-    "perlane" / "hybrid" override it."""
-    if total_tris >= 65536:
-        return "perlane"
-    if spp == 1 and bounces >= 1:
-        return "perlane"
-    return "mega"
-
-
-def _perlane_wanted(cfg, auto_tier: str) -> bool:
-    """Pack the per-lane tables only where the TPU-only tier can run (or
-    is explicitly forced) — they cost HBM and build time."""
-    if cfg.traversal in ("perlane", "hybrid"):
-        return True
-    if cfg.traversal != "auto" or auto_tier != "perlane":
-        return False
-    import jax
-
-    return jax.default_backend() == "tpu"

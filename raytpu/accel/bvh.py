@@ -2,8 +2,8 @@
 
 The reference gets its acceleration structures from the Vulkan driver
 (``vkCmdBuildAccelerationStructuresKHR`` at ``src/main.cpp:495-498``, TLAS at
-``:730-733``). On TPU the builder is a first-class component (SURVEY.md §2
-"components the TPU build must add"). This module provides the *host*
+``:730-733``). Here the builder is a first-class component (SURVEY.md §2
+"components the port must add"). This module provides the *host*
 builders:
 
 * **binned SAH** (default) — best traversal quality, used for the
@@ -14,8 +14,9 @@ builders:
 * a native C++ builder backend (``native/``) slots in via the same
   :class:`Bvh` output format.
 
-Output format — the **threaded (skip-link) layout** consumed by the
-vectorized traversal kernel (``raytpu/ops/traverse.py``): nodes in DFS
+Output format — the **threaded (skip-link) layout** consumed by every
+traversal walk (``raytpu/ops/bvh_kernel.py``, ``packet.py``,
+``traverse.py``): nodes in DFS
 order; an AABB hit descends to ``i+1`` (implicit), a miss jumps to
 ``miss[i]``; ``miss == node_count`` is the exit sentinel. Per-ray state is a
 single node index — no stack — which is what makes traversal a pure

@@ -1,11 +1,11 @@
 """LBVH: Morton-code radix BVH built ON DEVICE in JAX.
 
-The device-side acceleration-structure builder (SURVEY.md §2: the TPU must
-own what the Vulkan driver provides at ``src/main.cpp:495-498``). The
+The device-side acceleration-structure builder (SURVEY.md §2: the renderer
+must own what the Vulkan driver provides at ``src/main.cpp:495-498``). The
 construction is the classic parallel formulation (Karras-style binary radix
 tree over sorted Morton codes):
 
-1. 30-bit Morton codes of triangle centroids (bit-interleave on the VPU);
+1. 30-bit Morton codes of triangle centroids (elementwise bit-interleave);
 2. ``jnp.argsort`` (XLA's parallel sort);
 3. binary radix tree: each internal node's range/split found with fixed
    32-step vectorized binary searches over common-prefix lengths

@@ -8,34 +8,22 @@ acceleration-structure build, ``src/main.cpp:495-498``).
 from __future__ import annotations
 
 import ctypes
-import os
 from typing import Optional
 
 import numpy as np
 
 from raytpu.accel.bvh import Bvh
-
-_LIB_PATH = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "native",
-    "libraytpu_native.so",
-)
+from raytpu.utils import native_lib
 
 _lib: Optional[ctypes.CDLL] = None
-_load_failed = False
 
 
 def _load() -> Optional[ctypes.CDLL]:
-    global _lib, _load_failed
-    if _lib is not None or _load_failed:
+    global _lib
+    if _lib is not None:
         return _lib
-    if not os.path.exists(_LIB_PATH):
-        _load_failed = True
-        return None
-    try:
-        lib = ctypes.CDLL(_LIB_PATH)
-    except OSError:
-        _load_failed = True
+    lib = native_lib.load()
+    if lib is None:
         return None
     f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
     i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")

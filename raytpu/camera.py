@@ -14,7 +14,7 @@ Semantics match the reference camera exactly (``src/camera.cpp:8-143`` +
 
 The camera is deliberately *host-side* state (plain Python floats / NumPy):
 the jitted render step consumes only the packed basis via :meth:`basis`, so
-interactive camera updates never trigger a retrace/recompile — the TPU analog
+interactive camera updates never trigger a retrace/recompile — the analog
 of the reference re-uploading the uniform buffer each frame
 (``src/main.cpp:2879-2903``).
 """
@@ -102,7 +102,7 @@ class Camera:
     def basis(self) -> np.ndarray:
         """(4, 3) float32: rows = position, right, up, forward.
 
-        This is the TPU-side mirror of ``UniformStructure.camera*``
+        This is the device-side mirror of ``UniformStructure.camera*``
         (``src/main.cpp:1848-1851`` / ``src/shader.rgen:23-26``).
         """
         return np.stack(

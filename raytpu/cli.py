@@ -69,8 +69,7 @@ def _build_config(args) -> RenderConfig:
             cfg = cfg.replace(skybox_dir=args.skybox)
     overrides = {}
     for field in ("width", "height", "samples_per_pixel", "max_bounce_count",
-                  "ray_chunk", "devices", "traversal", "divergence",
-                  "wavefront", "chunk_tris"):
+                  "ray_chunk", "devices", "traversal", "wavefront"):
         v = getattr(args, field, None)
         if v is not None:
             overrides[field] = v
@@ -94,15 +93,8 @@ def _add_scene_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--samples-per-pixel", type=int, dest="samples_per_pixel")
     p.add_argument("--max-bounce-count", type=int, dest="max_bounce_count")
     p.add_argument("--ray-chunk", type=int, dest="ray_chunk")
-    p.add_argument("--chunk-tris", type=int, dest="chunk_tris",
-                   help="triangles per BLAS chunk (0 = SMEM-sized default)")
-    p.add_argument("--traversal",
-                   choices=("auto", "perlane", "mega", "xla", "pallas",
-                            "brute"),
-                   help="traversal backend (default auto)")
-    p.add_argument("--divergence", choices=("off", "split", "split_all",
-                                            "sort"),
-                   help="divergence scheduling mode (see RenderConfig)")
+    p.add_argument("--traversal", choices=("auto", "kernel", "xla", "brute"),
+                   help="traversal walk (default auto: the kernel on a GPU)")
     p.add_argument("--wavefront", choices=("full", "compact"),
                    help="bounce-loop scheduling (see RenderConfig)")
     p.add_argument("--light", type=float, nargs=3, metavar=("X", "Y", "Z"))
@@ -158,23 +150,17 @@ def cmd_flythrough(args) -> int:
 
 def cmd_bench(args) -> int:
     _apply_platform(args)
-    from raytpu.bench import run_benchmark, run_matrix
+    from raytpu.bench import require_gpu, run_benchmark
 
-    if getattr(args, "matrix", False):
-        result = run_matrix(
-            frames=args.frames or 4,
-            highpoly_depth=args.highpoly_depth,
-            budget_s=args.budget,
-        )
-        print(json.dumps(result))
-        return 0
+    info = require_gpu()
     if args.preset is None and not args.mesh:
         args.preset = "config4"
     result = run_benchmark(
         preset=_build_config(args),
-        frames=args.frames or 8,
+        frames=args.frames or 10,
         highpoly_depth=args.highpoly_depth,
     )
+    result["name_power_limit"] = info["name_power_limit"]
     print(json.dumps(result))
     return 0
 
@@ -206,17 +192,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--frames", type=int, help="max frames")
     p.set_defaults(fn=cmd_flythrough)
 
-    p = sub.add_parser("bench", help="throughput benchmark (prints one JSON line)")
+    p = sub.add_parser("bench", help="GPU frame-time benchmark (one JSON line)")
     _add_scene_args(p)
     p.add_argument("--frames", type=int)
-    p.add_argument(
-        "--matrix", action="store_true",
-        help="benchmark every BASELINE preset (+ reference) in one run",
-    )
-    p.add_argument(
-        "--budget", type=float, default=900.0,
-        help="wall-clock budget in seconds for --matrix",
-    )
     p.set_defaults(fn=cmd_bench)
 
     p = sub.add_parser("interactive", help="windowed WASD+mouse viewer")

@@ -1,18 +1,18 @@
 """Device-resident scene: the pytree consumed by the jitted render step.
 
-This is the TPU analog of the reference's descriptor-set ABI
+The analog of the reference's descriptor-set ABI
 (``src/main.cpp:1305-1351``): binding 0 (TLAS) → per-instance transforms +
 per-mesh BVH arrays; bindings 2/3 (index/vertex SSBOs) → pre-gathered
 per-triangle corner data; binding 5 (cubemap sampler) → the skybox array;
 binding 1 (UBO) → light/material scalars.
 
-Layout choices (TPU-first):
+Layout choices:
 
 * **pre-gathered corner SoA**: instead of the reference's index buffer +
   interleaved vertex buffer chased at hit time (``src/shader.rchit:62-86``),
   we store per-triangle ``v0/e1/e2`` (intersection) and ``n0/n1/n2``
   (shading) directly. One gather by primitive id replaces three dependent
-  gathers — gathers are the scarce resource on a vector machine.
+  gathers.
 * **object space + transforms as inputs**: triangles stay in object space;
   instance transforms are ordinary jit inputs. Per-frame "TLAS refit"
   (``src/main.cpp:606-608,730-778``) is therefore free — no rebuild, no
@@ -57,25 +57,13 @@ class DeviceScene(NamedTuple):
 
     # component-SoA shading-normal tables (see ops/vec3.py)
     tri_n_soa: Optional[jnp.ndarray] = None    # (9, T): n0x n0y n0z n1x ... n2z
-    # skybox packed RGB8 into one uint32 word per texel: ONE gather per
-    # bilinear tap instead of three (XLA TPU gathers cost ~7ns/lane each)
+    # skybox packed RGB8 into one uint32 word per texel: one gather per
+    # bilinear tap instead of three
     skybox_u32: Optional[jnp.ndarray] = None   # (6*H*W,) uint32
     # 2x bilinear-prefiltered packed map: single-tap sampling with at most
-    # a quarter-texel error vs true bilinear (the default filter)
+    # a quarter-texel error vs true bilinear; built only for
+    # skybox_filter="bilinear2x"
     skybox_u32_2x: Optional[jnp.ndarray] = None  # (6*2H*2W,) uint32
-    # QUAD-packed map: word (c, f·HW + y·W + x) holds channel c's full
-    # clamp-to-edge 2x2 bilinear footprint (c[y,x] | c[y,x1]<<8 |
-    # c[y1,x]<<16 | c[y1,x1]<<24) — exact bilinear lookups for the MXU sky
-    # sampler's divergent-packet fallback. Layout is INTERLEAVED
-    # (6HW, 3): XLA's TPU gather is charged per INDEX, not per gathered
-    # word (device-time probe tools/r9_gatherprobe3.py), so one gather of
-    # a contiguous 3-word row costs a third of the three per-channel
-    # gathers the earlier layouts paid — the round-4 per-scene
-    # stacked/tuple split (tools/r7_skyquad_ab.py: relayout-fusion vs
-    # gather-speed trade) is obsolete, both were optimizing the slow
-    # form. sample_cubemap_u32_quad still accepts stacked/flat/tuple
-    # interchangeably (bit-identical outputs, pinned by tests/test_sky.py).
-    skybox_quad: Optional[object] = None  # (6HW, 3) u32 (or legacy forms)
 
     # acceleration structure arrays (None until attached by raytpu.accel):
     # threaded (skip-link) BVH, concatenated over meshes
@@ -90,48 +78,10 @@ class DeviceScene(NamedTuple):
     bvh_tri_e1: Optional[jnp.ndarray] = None
     bvh_tri_e2: Optional[jnp.ndarray] = None
     bvh_tri_prim: Optional[jnp.ndarray] = None  # (T,) int32 → global prim id
-    # shading normals in BVH-slot order (9, Tbvh): lets the Pallas kernel
-    # interpolate normals at hit time from SMEM scalars — no post-trace
-    # per-lane gathers
-    bvh_tri_n_soa: Optional[jnp.ndarray] = None
 
-    # megakernel chunk tables (ops/mega.py): per-chunk BVH node/tri/normal
-    # data packed into flat DMA-able arrays (uniform per-chunk stride,
-    # 1024-aligned), plus per-chunk object-space root AABBs for the XLA
-    # culling prepass
-    mega_f32: Optional[jnp.ndarray] = None   # (Cmesh * F,) float32
-    mega_i32: Optional[jnp.ndarray] = None   # (Cmesh * I,) int32
-    mega_oct: Optional[jnp.ndarray] = None   # (Cmesh * 8 * O,) int32
-    mega_root: Optional[jnp.ndarray] = None  # (Cmesh, 6) float32
-
-    # anyhit-specialized chunk tables (no normal planes, ~1.55x triangles
-    # per chunk): occlusion sweeps walk these — fewer entries and table
-    # DMAs; bit-identical because occlusion is an order-independent OR
-    mega_sh_f32: Optional[jnp.ndarray] = None   # (Cs * Fs,) float32
-    mega_sh_i32: Optional[jnp.ndarray] = None   # (Cs * Is,) int32
-    mega_sh_oct: Optional[jnp.ndarray] = None   # (Cs * 8 * Os,) int32
-    mega_sh_root: Optional[jnp.ndarray] = None  # (Cs, 6) float32
-
-    # two-level per-lane traversal tables (ops/perlane.py): SMEM top-tree
-    # box planes + treelet-site map, and per-treelet VMEM gather banks
-    # (planes/links replicated, node-indexed MT rows compact); the oct
-    # ordering tables are shared with the mega path (same chunk sets)
-    pl_box: Optional[jnp.ndarray] = None     # (C, box_len) f32
-    pl_tid: Optional[jnp.ndarray] = None     # (C, tid_len) i32
-    # planes: packed 16-bit quantized box words (q_hi<<16 | q_lo) per
-    # axis on the treelet-root grid; qsc: per-site (origin, scale)
-    # dequant scalars; links: packed succ | skip<<7 | cnt<<14 words
-    # (ops/perlane.py)
-    pl_planes: Optional[jnp.ndarray] = None  # (C, T, 3, 8, 128) i32
-    pl_qsc: Optional[jnp.ndarray] = None     # (C * qsc_len,) f32
-    pl_links: Optional[jnp.ndarray] = None   # (C*8, T, 8, 128) i32
-    pl_mt: Optional[jnp.ndarray] = None      # (C, T, rows, 128) f32
-    pl_sh_box: Optional[jnp.ndarray] = None
-    pl_sh_tid: Optional[jnp.ndarray] = None
-    pl_sh_qsc: Optional[jnp.ndarray] = None
-    pl_sh_planes: Optional[jnp.ndarray] = None
-    pl_sh_links: Optional[jnp.ndarray] = None
-    pl_sh_mt: Optional[jnp.ndarray] = None
+    # the same BVH in the GPU traversal kernel's record layout
+    # (ops/bvh_kernel.pack_tables); None off the kernel path
+    kernel_tables: Optional[object] = None
 
     def with_transforms(
         self, o2w: np.ndarray, w2o: np.ndarray
@@ -155,37 +105,17 @@ class SceneStatic:
     mesh_node_ranges: Tuple[Tuple[int, int], ...] = ()
     # per-mesh (start, count) into the BVH-ordered triangle arrays
     mesh_bvh_tri_ranges: Tuple[Tuple[int, int], ...] = ()
-    # traversal backend: "auto" | "pallas" | "xla" | "brute"
-    traversal: str = "auto"
-    # per traversal-mesh: BVH + triangles fit the Pallas SMEM residency budget
-    mesh_pallas_ok: Tuple[bool, ...] = ()
-    # flattened (instance_id, traversal_mesh_id) loop list. With chunked
-    # BLAS (raytpu/accel/chunking.py) one logical mesh contributes several
-    # traversal meshes; empty = derive 1:1 from instance_mesh.
-    trav_instances: Tuple[Tuple[int, int], ...] = ()
+    # traversal walk, resolved at BVH attach (accel.resolve_traversal):
+    # "kernel" (GPU kernel) | "xla" (packet walk) | "brute" (no BVH)
+    traversal: str = "brute"
+    # run the traversal kernel through the Pallas interpreter (tests only)
+    interpret: bool = False
     # skybox face dimensions (H, W) — the float cube map itself is host-only
     sky_hw: Tuple[int, int] = (1, 1)
-    # megakernel table layout (pad_nodes, pad_tris_incl_guard, f32_len,
-    # i32_len); None when the mega tables are not attached
-    mega_layout: Optional[Tuple[int, int, int, int]] = None
-    # anyhit-specialized chunk-table layout + its (instance, shadow-chunk)
-    # entry list; None/() when not attached (occlusion then walks the main
-    # chunk set)
-    mega_shadow_layout: Optional[Tuple[int, int, int, int]] = None
-    shadow_traversal_list: Tuple[Tuple[int, int], ...] = ()
-    # per-lane tier layouts (pad_nodes, t_pad, box_len, tid_len, rows_mt);
-    # None when the perlane tables are not attached
-    # (pad_nodes, t_pad, box_len, tid_len, rows_mt, qsc_len, pair_bits)
-    perlane_layout: Optional[Tuple[int, ...]] = None
-    perlane_shadow_layout: Optional[Tuple[int, ...]] = None
-    # traversal="auto" resolution on TPU: "mega" or "perlane", chosen at
-    # scene build from the measured preset table (accel.resolve_auto_tier)
-    auto_tier: str = "mega"
 
     @property
     def traversal_list(self) -> Tuple[Tuple[int, int], ...]:
-        if self.trav_instances:
-            return self.trav_instances
+        """(instance id, mesh id) pairs in visit order."""
         return tuple(enumerate(self.instance_mesh))
 
     @property
@@ -230,18 +160,43 @@ def build_device_scene(scene: Scene) -> Tuple[DeviceScene, SceneStatic]:
         sky8[..., 0] | (sky8[..., 1] << 8) | (sky8[..., 2] << 16)
     ).reshape(-1)  # (6*H*W,)
 
-    # per-channel quad-packed map (see DeviceScene.skybox_quad): the four
-    # clamp-to-edge bilinear taps of one channel in one word
-    quad = np.empty((3,) + sky8.shape[:3], np.uint32)
-    for c in range(3):
-        ch = sky8[..., c]                                     # (6, H, W)
-        chx = np.concatenate([ch[:, :, 1:], ch[:, :, -1:]], axis=2)
-        chy = np.concatenate([ch[:, 1:, :], ch[:, -1:, :]], axis=1)
-        chxy = np.concatenate([chx[:, 1:, :], chx[:, -1:, :]], axis=1)
-        quad[c] = ch | (chx << 8) | (chy << 16) | (chxy << 24)
-    # interleaved (6HW, 3): one row gather per lane — see field docstring
-    skybox_quad = np.ascontiguousarray(quad.reshape(3, -1).T)
+    if scene.config.skybox_filter == "bilinear2x":
+        skybox_u32_2x = jnp.asarray(_prefilter_2x(skybox))
+    else:
+        skybox_u32_2x = None
 
+    dev = DeviceScene(
+        tri_v0=jnp.asarray(v0),
+        tri_e1=jnp.asarray(v1 - v0),
+        tri_e2=jnp.asarray(v2 - v0),
+        tri_n0=jnp.asarray(n0),
+        tri_n1=jnp.asarray(n1),
+        tri_n2=jnp.asarray(n2),
+        o2w=jnp.asarray(o2w),
+        w2o=jnp.asarray(w2o),
+        materials=jnp.asarray(scene.material_types),
+        light_pos=jnp.asarray(scene.config.light_position, jnp.float32),
+        light_intensity=jnp.asarray(scene.config.light_intensity, jnp.float32),
+        tri_n_soa=jnp.asarray(tri_n_soa),
+        skybox_u32=jnp.asarray(skybox_u32),
+        skybox_u32_2x=skybox_u32_2x,
+    )
+
+    prim_ranges = []
+    for mesh_id in range(g.num_meshes):
+        _, ps = g.mesh_slice(mesh_id)
+        prim_ranges.append((ps.start, ps.stop - ps.start))
+
+    static = SceneStatic(
+        mesh_prim_ranges=tuple(prim_ranges),
+        instance_mesh=tuple(inst.mesh_id for inst in scene.instances),
+        sky_hw=(int(skybox.shape[1]), int(skybox.shape[2])),
+    )
+    return dev, static
+
+
+def _prefilter_2x(skybox: np.ndarray) -> np.ndarray:
+    """Packed RGB8 map at twice the face size, bilinearly upsampled."""
     # 2x bilinear prefilter: sample positions land on the half-texel grid,
     # so a nearest tap here == bilinear with weights quantized to {0,.5,1}.
     # Separable and per-face in float32 to keep host memory bounded
@@ -269,34 +224,4 @@ def build_device_scene(scene: Scene) -> Tuple[DeviceScene, SceneStatic]:
         skybox_u32_2x[f] = (
             f8[..., 0] | (f8[..., 1] << 8) | (f8[..., 2] << 16)
         ).reshape(-1)
-    skybox_u32_2x = skybox_u32_2x.reshape(-1)
-
-    dev = DeviceScene(
-        tri_v0=jnp.asarray(v0),
-        tri_e1=jnp.asarray(v1 - v0),
-        tri_e2=jnp.asarray(v2 - v0),
-        tri_n0=jnp.asarray(n0),
-        tri_n1=jnp.asarray(n1),
-        tri_n2=jnp.asarray(n2),
-        o2w=jnp.asarray(o2w),
-        w2o=jnp.asarray(w2o),
-        materials=jnp.asarray(scene.material_types),
-        light_pos=jnp.asarray(scene.config.light_position, jnp.float32),
-        light_intensity=jnp.asarray(scene.config.light_intensity, jnp.float32),
-        tri_n_soa=jnp.asarray(tri_n_soa),
-        skybox_u32=jnp.asarray(skybox_u32),
-        skybox_u32_2x=jnp.asarray(skybox_u32_2x),
-        skybox_quad=jnp.asarray(skybox_quad),
-    )
-
-    prim_ranges = []
-    for mesh_id in range(g.num_meshes):
-        _, ps = g.mesh_slice(mesh_id)
-        prim_ranges.append((ps.start, ps.stop - ps.start))
-
-    static = SceneStatic(
-        mesh_prim_ranges=tuple(prim_ranges),
-        instance_mesh=tuple(inst.mesh_id for inst in scene.instances),
-        sky_hw=(int(skybox.shape[1]), int(skybox.shape[2])),
-    )
-    return dev, static
+    return skybox_u32_2x.reshape(-1)

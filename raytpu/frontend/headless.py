@@ -1,6 +1,6 @@
 """Headless (offline) rendering frontend.
 
-The TPU replacement for the reference's swapchain presentation
+The replacement for the reference's swapchain presentation
 (``src/main.cpp:2905-2965``): frames go to image files instead of a window.
 """
 

@@ -1,12 +1,13 @@
 """Whitted integrator: the jitted `render` step (packet-wavefront form).
 
-TPU-native reformulation of the raygen shader (``src/shader.rgen:61-186``,
-the reference's per-pixel GPU program) as a **packet wavefront** program:
+A reformulation of the raygen shader (``src/shader.rgen:61-186``, the
+reference's per-pixel GPU program) as a **packet wavefront** program:
 
-* pixels are generated in **tile-major order** (16×16 tiles → packets of
-  K=256 rays) so each packet is spatially coherent — the property packet
-  traversal (``ops/packet.py``) converts into dense VPU work with no
-  per-ray gathers;
+* pixels are generated in **tile-major order** (32×32 tiles → packets of
+  K=1024 rays) so each packet is spatially coherent — the property the
+  XLA packet walk (``ops/packet.py``) turns into dense elementwise work,
+  and that keeps neighbouring lanes of the GPU traversal kernel
+  (``ops/bvh_kernel.py``) on neighbouring paths through the tree;
 * the reference's per-thread sample loop (``:70``) becomes a
   ``lax.fori_loop`` accumulating sample waves;
 * the per-thread bounce loop (``:84``) becomes a ``lax.while_loop`` over the
@@ -14,7 +15,7 @@ the reference's per-pixel GPU program) as a **packet wavefront** program:
   has terminated, so typical scenes pay 2–4 traversal rounds, not 64. This
   is the reference's own iterative formulation (it sets
   ``maxPipelineRayRecursionDepth = 1`` and loops in the shader,
-  ``src/main.cpp:1586``) — already the TPU-friendly shape;
+  ``src/main.cpp:1586``);
 * material "branches" are masked elementwise math; the shadow trace is
   skipped entirely (``lax.cond``) when no lane needs it; terminated lanes
   hand traversal a ``tmax = 0`` window so packets full of dead lanes park
@@ -48,50 +49,15 @@ from raytpu.config import (
     RenderConfig,
 )
 from raytpu.device_scene import DeviceScene, SceneStatic
-from raytpu.ops import raygen
 from raytpu.ops import shade
 from raytpu.ops import vec3 as v3
-from raytpu.ops import sky_mxu
 from raytpu.ops.sky import sample_cubemap_u32, sample_cubemap_u32_nearest
 from raytpu.ops.trace import any_hit_wave, closest_hit_wave
 
 
-def _use_mxu_sky(rs: "RenderStatic", k: int, h: int, w: int) -> bool:
-    """Route the deferred sky fetch through the MXU texture unit?
-
-    "auto" enables it on real TPU backends only — the interpret-mode kernel
-    is a per-packet Python loop, far slower than the XLA gather on CPU.
-    """
-    if rs.sky_sampler == "gather" or not sky_mxu.mxu_supported(h, w, k):
-        return False
-    return rs.sky_sampler == "mxu" or jax.default_backend() == "tpu"
-
-
-def _use_sky_rebin(rs: "RenderStatic") -> bool:
-    """Re-bin the compacted fallback sub-wave of the deferred MXU sky
-    fetch (sky_mxu._rebin_subwave)?
-
-    "auto" resolves OFF — BOTH rebin designs were measured-REJECTED on
-    chip (tools/r4_skyrebin_ab.py):
-
-    * v1 TOP-LEVEL rebin (sort the whole wave, move planes by per-lane
-      permute gathers): config5 32.6 → 242.6 ms, config4 166.7 → 820.9.
-      Per-lane ``take_along_axis`` transport costs ~like the gather it
-      replaces at 7 planes per wave, and its raster tile-order key made
-      sorted packets span a full map row at every tile-row wrap,
-      failing every window test.
-    * v2 SUB-WAVE rebin (sort only the compacted bad-packet sub-wave by
-      window cell, carry planes through the sorts as value operands):
-      config5 31.1 → 35.8, config4 166.6 → 209.1, reference 86.8 →
-      89.9. The 1D sort cost scales superlinearly (262k → 1.04M lanes
-      quadrupled input but ~9×'d the added cost) and the compacted
-      gather it displaces is only a few ms — the "19 ms sky fallback"
-      the op-level trace suggested was a misattribution of the bounce
-      loop's elementwise body fusions (4 executions/frame = the 4
-      bounce iterations, not 4 gather taps).
-
-    "on" keeps the v2 experiment reachable."""
-    return rs.sky_rebin == "on"
+# packet counts are padded to a multiple of this, so the compacted bounce
+# waves (_wave_budget) find a divisor of the wave near a quarter of it
+PACKET_GRANULE = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,63 +70,16 @@ class RenderStatic:
     max_bounce_count: int
     ray_chunk: int = 0     # rays per chunk (grouped whole packets); 0 = all
     skybox_filter: str = "bilinear"  # see RenderConfig.skybox_filter
-    sky_sampler: str = "auto"  # "auto" | "gather" | "mxu" (ops/sky_mxu.py)
-    sky_rebin: str = "auto"    # "auto" | "on" | "off" (see _use_sky_rebin)
-    divergence: str = "off"  # see RenderConfig.divergence
     wavefront: str = "compact"  # see RenderConfig.wavefront
-    ladder: str = "auto"  # descending wave-budget ladder on the fused
-                          # compact path (_wave_rungs): "auto" = multi-
-                          # rung (phase-wise smaller waves as the live
-                          # prefix shrinks — the 63-bounce reference
-                          # preset's late iterations are nearly dead),
-                          # "off" = single fixed budget (the round-4
-                          # behavior). Jit-cache-key field so A/B legs
-                          # can't alias (the `fused` precedent).
-    fused: str = "auto"  # fused Pallas bounce epilogue (ops/epilogue.py):
-                         # "auto" = on-TPU, "on" = force (interpret mode
-                         # off-TPU — the CPU semantics test), "off" = XLA
-                         # body. A real field, not an env var: RenderStatic
-                         # is the jit cache key, so A/B legs can't alias.
-    raygen: str = "auto"  # fused Pallas raygen (ops/raygen.py): "auto" =
-                          # kernel on TPU, "on" = force (interpret mode
-                          # off-TPU — the CPU semantics test), "off" =
-                          # XLA raygen (primary_rays_soa + pack_rays).
-                          # Jit-cache-key field, same rationale as `fused`.
-    shadow_order: str = "light"  # anyhit sweep entry order
-                                 # (ops/mega.entry_perm): "light" (default —
-                                 # entries sorted by distance from the point
-                                 # light, so the occluders shadowing the most
-                                 # lanes test first and the early-exit fires
-                                 # sooner; measured config4 126.4→123.8 ms,
-                                 # reference 72.3→70.5, config5 noise-neutral,
-                                 # tools/r6_shadow_ab.py) | "origin" (mean
-                                 # ray-origin depth). Bit-identical either
-                                 # way (occlusion is an order-independent OR;
-                                 # asserted on-chip n_diff=0).
-    bounce_unroll: bool = False  # see RenderConfig.bounce_unroll
     fold_spp: bool = True  # trace all spp waves in one folded sweep
-    tile: int = 32         # pixel tile edge; packet size K = tile² (32² =
-                           # 1024 = one native (8,128) VPU register — the
-                           # Pallas kernel's packet width)
+    tile: int = 32         # pixel tile edge; packet size K = tile²
     validation: bool = False  # in-jit NaN guards (utils/validation.jit_guard)
 
     @property
     def packet_size(self) -> int:
         return self.tile * self.tile
 
-    @property
-    def sample_group(self) -> int:
-        """Consensus-walk group width for the megakernel: the spp sample
-        packets of one tile are folded ADJACENTLY and walked with one
-        skip-link pointer (they are near-identical rays — grouping costs
-        ~no extra node visits and divides walk count by the group)."""
-        spp = self.samples_per_pixel
-        if self.fold_spp and spp in (1, 2, 4, 8):
-            return spp
-        return 1
-
     VALID_SKYBOX_FILTERS = ("bilinear2x", "bilinear", "nearest")
-    VALID_SKY_SAMPLERS = ("auto", "gather", "mxu")
 
     def __post_init__(self):
         if self.skybox_filter not in self.VALID_SKYBOX_FILTERS:
@@ -168,122 +87,35 @@ class RenderStatic:
                 f"unknown skybox_filter {self.skybox_filter!r}; "
                 f"use one of {self.VALID_SKYBOX_FILTERS}"
             )
-        if self.sky_sampler not in self.VALID_SKY_SAMPLERS:
-            raise ValueError(
-                f"unknown sky_sampler {self.sky_sampler!r}; "
-                f"use one of {self.VALID_SKY_SAMPLERS}"
-            )
 
     @classmethod
     def from_config(cls, config: RenderConfig) -> "RenderStatic":
-        import os
-
-        # whole-process A/B override, resolved ONCE at construction so the
-        # traced gate (ops/raygen.use_raygen_kernel) stays a pure function
-        # of the jit cache key — a trace-time env read would silently alias
-        # cache entries compiled under a different env value (ADVICE r4)
-        rg = os.environ.get("RAYTPU_RAYGEN", "") or "auto"
-        rg = {"0": "off", "1": "auto"}.get(rg, rg)
         return cls(
-            raygen=rg,
             width=config.width,
             height=config.height,
             samples_per_pixel=config.samples_per_pixel,
             max_bounce_count=config.max_bounce_count,
             ray_chunk=config.ray_chunk,
             skybox_filter=config.skybox_filter,
-            sky_sampler=config.sky_sampler,
-            sky_rebin=config.sky_rebin,
-            divergence=config.divergence,
             wavefront=config.wavefront,
-            bounce_unroll=config.bounce_unroll,
             validation=config.validation,
         )
 
 
-def _use_fused(static: SceneStatic, rs: "RenderStatic", p: int,
-               k: int) -> bool:
-    """Route the bounce loop through the fused Pallas epilogue kernels
-    (``ops/epilogue.py``)? TPU-only, default ON (``RAYTPU_FUSED=0``
-    escapes for A/B legs). Requires the packed-ABI sweep tiers and the
-    default scheduling knobs — the experiment knobs (divergence
-    scheduling, bounce unrolling) keep the XLA body, as do CPU/interpret
-    runs (where the goldens + scalar oracle pin the semantics).
-    ``wavefront="compact"`` composes with the fused path as a sort-ONCE
-    live-first packet prefix for the j>=1 iterations (see
-    ``_trace_sample_fused``); the old per-iteration resort is only
-    needed by the XLA body, whose unpacked planes the kernels never
-    materialize."""
-    import os
-
-    # env override maps onto the field for whole-process A/B legs
-    mode = os.environ.get("RAYTPU_FUSED", "") or rs.fused
-    mode = {"0": "off", "1": "on"}.get(mode, mode)
-    if mode == "off":
-        return False
-    if rs.divergence != "off" or rs.bounce_unroll:
-        return False
-    # "on" forces the path off-TPU too (interpret-mode kernels — slow,
-    # for the CPU semantic-equality test); "auto" engages on TPU only
-    if mode != "on" and jax.default_backend() != "tpu":
-        return False
-    from raytpu.ops.mega import BLOCK_PACKETS
-    from raytpu.ops.trace import packed_tier_available
-    from raytpu.ops.traverse_pallas import PACKET_K
-
-    if k != PACKET_K or p % BLOCK_PACKETS != 0:
-        return False
-    return packed_tier_available(static, p, k, tier="loop")
-
-
 def _wave_budget(p: int) -> int:
     """Compacted-wave row budget for ``wavefront="compact"``: the largest
-    DIVISOR of P that is a SEG_PACKETS multiple and ≤ ~P/4 (waves must
-    tile P exactly — disjoint dynamic slices — and the sweep/epilogue
-    kernels need the SEG granule; P is always a SEG_PACKETS multiple,
-    see render_packets' padding). 0 disables compaction (no divisor
-    gives a real subset, i.e. P < 2·SEG_PACKETS)."""
-    from raytpu.ops.mega import SEG_PACKETS
-
-    cap = max(p // 4, SEG_PACKETS)
+    DIVISOR of P that is a PACKET_GRANULE multiple and ≤ ~P/4 (waves must
+    tile P exactly — disjoint dynamic slices; P is always a granule
+    multiple, see _tiled_pixels' padding). 0 disables compaction (no
+    divisor gives a real subset, i.e. P < 2·PACKET_GRANULE)."""
+    cap = max(p // 4, PACKET_GRANULE)
     best = 0
-    b = SEG_PACKETS
+    b = PACKET_GRANULE
     while b <= cap:
         if p % b == 0:
             best = b
-        b += SEG_PACKETS
+        b += PACKET_GRANULE
     return best if best * 2 <= p else 0
-
-
-def _wave_rungs(p: int, budget: int, max_rungs: int = 3) -> list:
-    """Descending wave-budget ladder for the fused compact path (VERDICT
-    r4 item 6): the fixed ``budget`` (~P/4) still runs one budget-sized
-    wave per iteration when only a handful of packets are live — on the
-    reference preset's 63-bounce loop the late iterations are nearly-dead
-    waves paying a 512-packet sweep each. Liveness is MONOTONE under the
-    sort-once layout, so the loop can move PHASE-WISE to smaller wave
-    sizes as the live prefix shrinks (each rung is its own while loop —
-    no per-iteration lax.cond, whose buffer overhead was measured at
-    ~2 ms/iteration for the shadow skip). Every rung is a divisor of P
-    (disjoint exact tiling — the non-divisor clamped-tail double-bounce
-    hazard documented at ``body_compact``) and a SEG_PACKETS multiple
-    (sweep/epilogue granule); each rung is ≤ a quarter of the previous
-    so a phase transition always cuts the sweep width ≥4x."""
-    from raytpu.ops.mega import SEG_PACKETS
-
-    rungs = [budget]
-    while len(rungs) < max_rungs:
-        cap = rungs[-1] // 4
-        nxt = 0
-        b = SEG_PACKETS
-        while b <= cap:
-            if p % b == 0:
-                nxt = b
-            b += SEG_PACKETS
-        if not nxt:
-            break
-        rungs.append(nxt)
-    return rungs
 
 
 def hash_random(pix: jnp.ndarray, seed: jnp.ndarray) -> jnp.ndarray:
@@ -344,256 +176,17 @@ def primary_rays_soa(
     return o, d
 
 
-def _interpolate_normal_soa(
-    scene: DeviceScene, prim: jnp.ndarray, inst: jnp.ndarray,
-    u: jnp.ndarray, v: jnp.ndarray,
-):
-    """Barycentric normal interpolation + world transform via the
-    inverse-transpose, exactly ``src/shader.rchit:66-94`` — component-SoA:
-    nine 1-D table gathers (layout-perfect) + scalar-coefficient transform.
-
-    Instance-transform note: per-lane instance ids would need a gather of
-    3×3 matrix rows; instead we select per INSTANCE with masks (the
-    instance count is tiny and static), keeping everything elementwise.
-    """
-    p = jnp.maximum(prim, 0)
-    w = 1.0 - u - v
-    n_obj = tuple(
-        w * jnp.take(scene.tri_n_soa[c], p, axis=0)
-        + u * jnp.take(scene.tri_n_soa[3 + c], p, axis=0)
-        + v * jnp.take(scene.tri_n_soa[6 + c], p, axis=0)
-        for c in range(3)
-    )
-    # n_world = n_obj · W2O_linear (src/shader.rchit:94), instance-selected
-    n_world = None
-    num_inst = scene.w2o.shape[0]
-    for i in range(num_inst):
-        cand = v3.linear_cols(scene.w2o[i], n_obj)
-        if n_world is None:
-            n_world = cand
-        else:
-            n_world = v3.where(inst == i, cand, n_world)
-    return v3.normalize(n_world)
-
-
-def _trace_sample_fused(
-    scene: DeviceScene,
-    static: SceneStatic,
-    rs: RenderStatic,
-    o,                       # Vec3 of (P, K)
-    d,                       # Vec3 of (P, K)
-    sample_idx: jnp.ndarray,
-    active0: jnp.ndarray,    # (P, K) initial lane mask
-    group: int = 1,
-    rays6=None,              # pre-packed (6, P, 8, 128) rays (ops/raygen)
-):
-    """The bounce loop on the PACKED ABI with fused Pallas epilogues
-    (``ops/epilogue.py``): the loop carries the sweeps' packed ray/state
-    buffers, the inter-sweep elementwise body runs as exactly two kernel
-    passes per iteration, and the per-bounce ``pack_rays`` /
-    ``unpack_state`` copies vanish. Semantics = ``bounce_core`` exactly
-    (FMA-contraction ulps aside); see the epilogue module docstring."""
-    from raytpu.ops.epilogue import accumulate_epilogue, shade_epilogue
-    from raytpu.ops.trace import anyhit_sweep_packed, closest_sweep_packed
-    from raytpu.ops.traverse_pallas import (
-        K_LANE,
-        K_SUB,
-        make_trace_state_reg,
-        pack_rays,
-    )
-
-    p, k = o[0].shape
-    amb = shade.ambient_tuple()
-    tmp = jnp.broadcast_to(
-        jnp.asarray(amb, jnp.float32).reshape(3, 1, 1, 1),
-        (3, p, K_SUB, K_LANE),
-    )
-    # per-PACKET decay: the spp fold keeps sample index constant per
-    # packet row (render_packets), so the (P, K) decay plane of the XLA
-    # body collapses to a (P,) scalar vector the accumulate kernel reads
-    # from SMEM — one fewer carried plane
-    s = sample_idx.astype(jnp.float32)
-    s_row = s[:, 0] if s.ndim == 2 else jnp.broadcast_to(s, (p,))
-    decay_p = SAMPLE_DECAY ** s_row
-
-    rays = rays6 if rays6 is not None else pack_rays(o, d)
-    win = jnp.where(active0, jnp.float32(RAY_TMAX), 0.0).reshape(
-        p, K_SUB, K_LANE
-    )
-    miss = jnp.zeros((p, K_SUB, K_LANE), jnp.int32)
-
-    # compacted j>=1 waves (rs.wavefront == "compact", the default): the
-    # peeled j=0 runs full width, then packets sort live-first ONCE and
-    # later iterations process only a prefix of the wave. Unlike the XLA
-    # body's per-iteration resort (body_compact), one sort suffices here:
-    # liveness is MONOTONE (a continuation mask is a subset of its
-    # iteration's active mask — dead packets never revive), so live
-    # packets stay inside the sorted prefix forever and each iteration
-    # just re-measures the prefix length (last live row + 1). Saves the
-    # full-width per-iteration fixed costs the r9 op trace measured
-    # (~2.6 ms/iteration on config4: shade epilogue 1.54 + accumulate
-    # 0.46 + make_trace_state 0.51) at the price of two 11-plane packet
-    # permutes per frame (~bandwidth). Bit-identical: per-lane math is
-    # permutation-invariant and the waves are disjoint static-size
-    # slices of the sorted layout.
-    budget = _wave_budget(p) if rs.wavefront == "compact" else 0
-    from raytpu.ops.epilogue import BP
-    if budget and (p % budget != 0 or budget % BP != 0):
-        budget = 0
-
-    def cond(state):
-        j, _, w, _, _ = state
-        return (j <= rs.max_bounce_count) & jnp.any(w > 0.0)
-
-    def step(rays, win, tmp, miss, decay_vec, tier="loop"):
-        """One fused bounce iteration at the width of its inputs."""
-        pw = rays.shape[1]
-        st = closest_sweep_packed(scene, static, rays, RAY_TMIN,
-                                  make_trace_state_reg(win),
-                                  group=group, tier=tier)
-        srays, swin, ab, lit, rays, win, miss = shade_epilogue(
-            rays, st, miss, scene.light_pos, scene.light_intensity
-        )
-
-        def do_shadow(_):
-            return anyhit_sweep_packed(scene, static, srays, RAY_TMIN,
-                                       swin, group=group, tier=tier,
-                                       order=rs.shadow_order)
-
-        # same skip policy as the XLA body (see bounce_core)
-        if rs.max_bounce_count <= 4 and rs.samples_per_pixel > 1:
-            occ = do_shadow(None)
-        else:
-            occ = jax.lax.cond(
-                jnp.any(lit != 0),
-                do_shadow,
-                lambda _: jnp.zeros((pw, K_SUB, K_LANE), jnp.int32),
-                operand=None,
-            )
-        tmp = accumulate_epilogue(occ, ab, lit, tmp, decay_vec,
-                                  scene.light_pos, scene.light_intensity)
-        return rays, win, tmp, miss
-
-    def body(state, tier="loop"):
-        j, rays, win, tmp, miss = state
-        rays, win, tmp, miss = step(rays, win, tmp, miss, decay_p, tier)
-        return j + 1, rays, win, tmp, miss
-
-    state0 = (jnp.int32(0), rays, win, tmp, miss)
-    hybrid = static.traversal == "hybrid"
-    if hybrid or budget:
-        state0 = body(state0, tier="primary" if hybrid else "loop")
-    if budget:
-        j0, rays, win, tmp, miss = state0
-        plive = jnp.any(win.reshape(p, -1) > 0.0, axis=1)
-        order = jnp.argsort(~plive, stable=True)        # live first
-        inv = jnp.argsort(order, stable=True)
-        rays = jnp.take(rays, order, axis=1)
-        win = jnp.take(win, order, axis=0)
-        tmp = jnp.take(tmp, order, axis=1)
-        miss = jnp.take(miss, order, axis=0)
-        decay_s = jnp.take(decay_p, order, axis=0)
-        rows1 = jnp.arange(1, p + 1, dtype=jnp.int32)
-
-        def n_eff_of(win):
-            live_row = jnp.any(win.reshape(p, -1) > 0.0, axis=1)
-            return jnp.max(jnp.where(live_row, rows1, 0))
-
-        def make_body(b):
-            """Bounce iteration over live-first waves of ``b`` rows
-            (``b`` divides p — disjoint, in-bounds slices)."""
-
-            def body_c(state):
-                j, rays, win, tmp, miss = state
-                n_waves = (n_eff_of(win) + b - 1) // b
-
-                def wave(c, planes):
-                    rays, win, tmp, miss = planes
-                    start = c * b
-
-                    def sl(x, axis):
-                        return jax.lax.dynamic_slice_in_dim(x, start, b,
-                                                            axis)
-
-                    r_w, w_w, t_w, m_w = step(
-                        sl(rays, 1), sl(win, 0), sl(tmp, 1), sl(miss, 0),
-                        sl(decay_s, 0),
-                    )
-                    upd = jax.lax.dynamic_update_slice_in_dim
-                    return (upd(rays, r_w, start, 1),
-                            upd(win, w_w, start, 0),
-                            upd(tmp, t_w, start, 1),
-                            upd(miss, m_w, start, 0))
-
-                planes = jax.lax.while_loop(
-                    lambda cp: cp[0] < n_waves,
-                    lambda cp: (cp[0] + 1, wave(cp[0], cp[1])),
-                    (jnp.int32(0), (rays, win, tmp, miss)),
-                )[1]
-                rays, win, tmp, miss = planes
-                return j + 1, rays, win, tmp, miss
-
-            return body_c
-
-        # descending rung ladder (phase-split — liveness is monotone, so
-        # once the live prefix fits a smaller rung it fits it forever;
-        # each phase is its own while loop, no per-iteration cond)
-        rungs = (_wave_rungs(p, budget) if rs.ladder == "auto"
-                 else [budget])
-        state_l = (j0, rays, win, tmp, miss)
-        for i, b in enumerate(rungs):
-            nxt = rungs[i + 1] if i + 1 < len(rungs) else 0
-
-            def cond_phase(state, nxt=nxt):
-                j, _, win, _, _ = state
-                n_eff = n_eff_of(win)
-                ok = (j <= rs.max_bounce_count) & (n_eff > 0)
-                if nxt:
-                    ok = ok & (n_eff > nxt)
-                return ok
-
-            state_l = jax.lax.while_loop(cond_phase, make_body(b),
-                                         state_l)
-        _, rays, _, tmp, miss = state_l
-        rays = jnp.take(rays, inv, axis=1)
-        tmp = jnp.take(tmp, inv, axis=1)
-        miss = jnp.take(miss, inv, axis=0)
-    else:
-        _, rays, _, tmp, miss = jax.lax.while_loop(cond, body, state0)
-
-    d_f = tuple(rays[3 + c].reshape(p, k) for c in range(3))
-    tmp_t = tuple(tmp[c].reshape(p, k) for c in range(3))
-    missed = miss.reshape(p, k) != 0
-    if rs.validation:
-        from raytpu.utils.validation import jit_guard
-
-        tmp_t = jit_guard(tmp_t, "bounce-loop radiance")
-        d_f = jit_guard(d_f, "final ray directions")
-    return _deferred_sky(scene, static, rs, k, missed, d_f, tmp_t)
-
-
-def _deferred_sky(scene, static, rs, k, missed, d, tmp):
+def _deferred_sky(scene, static, rs, missed, d, tmp):
     """Deferred once-per-wave skybox fetch + miss replacement
-    (``src/shader.rgen:90-94``) — shared tail of the XLA and fused bounce
-    loops; see the no-carry note in ``_trace_sample``."""
+    (``src/shader.rgen:90-94``), z-flipped lookup. The exit-time ``d`` IS
+    each miss lane's miss direction (see the no-carry note in
+    ``_trace_sample``); non-miss lanes point at a fixed direction so their
+    masked-out taps all read the same texels."""
     sky_h, sky_w = static.sky_hw
     mdx = jnp.where(missed, d[0], 0.0)
     mdy = jnp.where(missed, d[1], 0.0)
     mdz = jnp.where(missed, -d[2], 1.0)
-    if rs.skybox_filter == "bilinear" and _use_mxu_sky(rs, k, sky_h, sky_w):
-        # MXU texture unit (ops/sky_mxu.py): true bilinear via tent-weight
-        # matmuls at single-tap cost; divergent packets take its tiered
-        # compacted-gather fallback. (Splitting this fetch by miss class —
-        # j=0 coherent vs j≥1 scattered — was measured-REJECTED on chip:
-        # config4 160.7 → 172.0, config5 20.3 → 21.5. The second analyze
-        # + kernel pass costs more than it saves because the compacted
-        # gather's cost is a per-tap floor insensitive to how many of its
-        # lanes are masked duplicates; see docs/roadmap.md round-3e.)
-        sky = sky_mxu.sample_cubemap_u32_mxu(
-            scene.skybox_u32, sky_h, sky_w, (mdx, mdy, mdz), missed,
-            rebin=_use_sky_rebin(rs), quad=scene.skybox_quad,
-        )
-    elif rs.skybox_filter == "bilinear":
+    if rs.skybox_filter == "bilinear":
         sky = sample_cubemap_u32(
             scene.skybox_u32, sky_h, sky_w, (mdx, mdy, mdz)
         )
@@ -616,40 +209,31 @@ def _trace_sample(
     d,                       # Vec3 of (P, K)
     sample_idx: jnp.ndarray,
     active0: jnp.ndarray,    # (P, K) initial lane mask (padding excluded)
-    group: int = 1,          # consensus group width (interleaved spp fold)
-    rays6=None,              # pre-packed (6, P, 8, 128) rays (ops/raygen)
 ):
     """One sample wave through the bounce loop → Vec3 color of (P, K)."""
     p, k = o[0].shape
-    if _use_fused(static, rs, p, k):
-        return _trace_sample_fused(scene, static, rs, o, d, sample_idx,
-                                   active0, group, rays6=rays6)
     amb = shade.ambient_tuple()
     tmp = tuple(jnp.full((p, k), c, jnp.float32) for c in amb)  # :81
     # 0.9^i quirk (:128); broadcast per-lane so compacted waves can slice it
     decay = jnp.broadcast_to(
         SAMPLE_DECAY ** sample_idx.astype(jnp.float32), (p, k)
     )
-    sky_h, sky_w = static.sky_hw
     # DEFERRED skybox: each lane misses at most once, so record the miss
-    # during the loop and do the (expensive) cubemap fetch exactly ONCE
-    # per sample wave after the loop — instead of once per bounce
-    # iteration. Semantics identical: on miss the color is REPLACED by
-    # the skybox and the lane terminates (:90-94).
+    # during the loop and do the cubemap fetch exactly ONCE per sample wave
+    # after the loop — instead of once per bounce iteration. Semantics
+    # identical: on miss the color is REPLACED by the skybox and the lane
+    # terminates (:90-94).
     # NO miss-direction carry: a lane misses at most once and goes
     # inactive forever, and ``d`` is only rewritten on live mirror/refract
     # continuations — so at loop exit ``d`` IS the recorded miss direction
-    # for every miss_rec lane, exactly (the final fetch masks non-miss
-    # lanes to a fixed direction through miss_rec anyway). Dropping the
-    # 3-plane carry shrinks the loop state 14 → 11 (P, K) planes.
+    # for every miss_rec lane, exactly.
     miss_rec = jnp.zeros((p, k), bool)
 
     def cond(state):
         j, _, _, _, active, _ = state
         return (j <= rs.max_bounce_count) & jnp.any(active)  # inclusive :84
 
-    def bounce_core(o, d, tmp, active, miss_rec, decay_, sparse,
-                    tier="loop"):
+    def bounce_core(o, d, tmp, active, miss_rec, decay_):
         """One bounce iteration's work at the width of its inputs: closest
         trace, miss recording, shadow + Blinn-Phong, mirror/refract
         continuations. Per-lane results depend only on that lane's state,
@@ -657,8 +241,7 @@ def _trace_sample(
         compacted sub-wave (``rs.wavefront == "compact"``)."""
         pw, kw = o[0].shape
         lane_tmax = jnp.where(active, jnp.float32(RAY_TMAX), 0.0)
-        hit = closest_hit_wave(scene, static, o, d, RAY_TMIN, lane_tmax,
-                               group=group, sparse=sparse, tier=tier)
+        hit = closest_hit_wave(scene, static, o, d, RAY_TMIN, lane_tmax)
         hit_mask = active & hit.is_hit
         miss_mask = active & ~hit.is_hit
 
@@ -684,31 +267,18 @@ def _trace_sample(
 
         def do_shadow(_):
             return any_hit_wave(
-                scene,
-                static,
-                shadow_o,
-                l,
-                RAY_TMIN,
+                scene, static, shadow_o, l, RAY_TMIN,
                 jnp.where(lit_candidate, light_dist, 0.0),
-                group=group,
-                sparse=rs.divergence,
-                tier=tier,
-                order=rs.shadow_order,
             )
 
-        # Shallow multi-sample bounce loops run the shadow sweep
-        # UNCONDITIONALLY: with a lit_candidate-masked window wave a
-        # no-candidate sweep's prepass culls every block (near-free),
-        # while the lax.cond skip-wrapper itself costs ~2 ms/iteration in
-        # conditional buffer/scheduling overhead on 1080p waves (per-frame
-        # op trace, docs/roadmap.md round-3e), and dense spp-folded waves
-        # virtually always have diffuse candidates every iteration
-        # (measured: config4 149.1 → 145.9 ms, config2 flat). Sparse
-        # spp=1 frames keep the skip — their late iterations are often
-        # all-specular and the skip wins (config5 regressed 20.5 → 21.8
-        # unconditionally), as do deep loops (the 63-bounce reference
-        # ping-pongs mirror/refract lanes with no diffuse candidates).
-        # Bit-identical either way: zero windows produce occ == 0 exactly.
+        # Shallow multi-sample loops run the shadow sweep unconditionally:
+        # their dense spp-folded waves nearly always hold diffuse
+        # candidates, and lanes with an empty window park at once. Sparse
+        # spp=1 frames and deep loops (the 63-bounce reference preset
+        # ping-pongs mirror/refract lanes with no diffuse candidates) skip
+        # the sweep when no lane needs it. Results are identical either way:
+        # zero windows produce occ == 0 exactly. The split was chosen
+        # before the move to the GPU and has not been re-measured there.
         if rs.max_bounce_count <= 4 and rs.samples_per_pixel > 1:
             occluded = do_shadow(None)
         else:
@@ -735,10 +305,10 @@ def _trace_sample(
         d = v3.where(cont, v3.where(is_mirror, d_m, d_r), d)
         return o, d, tmp, cont, miss_rec
 
-    def body(state, sparse=rs.divergence, tier="loop"):
+    def body(state):
         j, o, d, tmp, active, miss_rec = state
         o, d, tmp, cont, miss_rec = bounce_core(
-            o, d, tmp, active, miss_rec, decay, sparse, tier
+            o, d, tmp, active, miss_rec, decay
         )
         return j + 1, o, d, tmp, cont, miss_rec
 
@@ -751,18 +321,16 @@ def _trace_sample(
         are contiguous row copies): after j=0 most packets are dead, so
         the per-bounce elementwise shading/bookkeeping and the sweeps run
         on a P/4-packet budget instead of the full wave. Packets sort
-        live-first (stable (P,)-sized argsort — trivial next to the
-        5 ms/sort LANE-granular version rejected in ops/rebin.py), waves
-        of `budget` rows process through `bounce_core` via contiguous
-        dynamic slices, and the inverse permutation restores frame order.
-        Per-lane results are permutation-invariant, so this is
-        bit-identical to the full-width body. The budget DIVIDES p
-        (_wave_budget picks a divisor), so the tail-wave clamp below
-        never engages: waves are disjoint. (With a non-divisor budget a
-        clamped tail wave would overlap the previous wave and re-apply
-        bounce_core to already-bounced live rows — an extra bounce, NOT
-        an identical recompute; the divisor rule is what makes this path
-        exact.)"""
+        live-first (a stable (P,)-sized argsort), waves of `budget` rows
+        process through `bounce_core` via contiguous dynamic slices, and
+        the inverse permutation restores frame order. Per-lane results
+        are permutation-invariant, so this is bit-identical to the
+        full-width body. The budget DIVIDES p (_wave_budget picks a
+        divisor), so the tail-wave clamp below never engages: waves are
+        disjoint. (With a non-divisor budget a clamped tail wave would
+        overlap the previous wave and re-apply bounce_core to
+        already-bounced live rows — an extra bounce, NOT an identical
+        recompute; the divisor rule is what makes this path exact.)"""
         j, o, d, tmp, active, miss_rec = state
         packet_live = jnp.any(active, axis=1)
         order = jnp.argsort(~packet_live, stable=True)      # live first
@@ -788,8 +356,7 @@ def _trace_sample(
             (ox, oy, oz, dx, dy, dz, t0, t1, t2, act, mr) = planes
             ow, dw, tw, cw, mrw = bounce_core(
                 (sl(ox), sl(oy), sl(oz)), (sl(dx), sl(dy), sl(dz)),
-                (sl(t0), sl(t1), sl(t2)), sl(act), sl(mr),
-                sl(decay_p), rs.divergence
+                (sl(t0), sl(t1), sl(t2)), sl(act), sl(mr), sl(decay_p)
             )
             upd = jax.lax.dynamic_update_slice_in_dim
             return (
@@ -816,44 +383,16 @@ def _trace_sample(
             (u(t0), u(t1), u(t2)), u(act), u(mr),
         )
 
-    # j=0 is peeled out of the loop when the loop body differs from the
-    # dense primary iteration (compact wavefront, divergence scheduling
-    # that must not touch the tile-coherent primary sweep, or the hybrid
-    # traversal tier routing the primary sweeps to the per-lane kernels).
-    # If the whole wave is dead (sharded padding shards) the peeled
-    # sweeps see all-zero windows and cull everything — results are
-    # mask-identical to not running them. Otherwise the peel would only
-    # duplicate the sweep kernels in the executable, so the loop runs
-    # unpeeled. ("split_all" schedules the primary sweep too, so it
-    # never peels.)
-    hybrid = static.traversal == "hybrid"
-    peel = bool(budget) or hybrid or rs.divergence == "sort" or (
-        rs.divergence == "split" and group in (2, 4)
-    )
+    # with compaction, j=0 is peeled out of the loop: the dense primary
+    # iteration runs full width, later iterations over compacted waves. If
+    # the whole wave is dead (sharded padding shards) the peeled sweeps
+    # see all-zero windows and park at once.
     state0 = (jnp.int32(0), o, d, tmp, active0, miss_rec)
-    if peel:
-        state0 = body(state0, sparse="off",
-                      tier="primary" if hybrid else "loop")
-    if rs.bounce_unroll and not budget and rs.max_bounce_count <= 8:
-        # statically unrolled bounce loop (experiment knob): identical
-        # per-iteration math — isolates lax.while_loop mechanics (carried-
-        # buffer copies around the aliased sweep kernels) from sweep cost.
-        # Executable holds max_bounce_count+1 copies of the sweep kernels,
-        # so this is capped to shallow loops. Known 1-ulp drift vs the
-        # while path (tests/test_knob_matrix.py tolerates exactly that):
-        # XLA compiles a while body as its own computation and contracts
-        # FMAs differently there than in inline code — measured at
-        # max 7.5e-9 on 14/3072 pixels of the 32x32 knob scene, and NOT
-        # removable by optimization_barrier between iterations (the
-        # contraction choice is intra-fusion, not cross-iteration).
-        state = state0
-        for _ in range(1 if peel else 0, rs.max_bounce_count + 1):
-            state = body(state)
-        _, _, d, tmp, _, miss_rec = state
-    else:
-        _, _, d, tmp, _, miss_rec = jax.lax.while_loop(
-            cond, body_compact if budget else body, state0
-        )
+    if budget:
+        state0 = body(state0)
+    _, _, d, tmp, _, miss_rec = jax.lax.while_loop(
+        cond, body_compact if budget else body, state0
+    )
     if rs.validation:
         # per-frame in-jit NaN guard on the accumulated radiance + final
         # ray directions (synchronization-validation analog, SURVEY.md §5)
@@ -861,41 +400,7 @@ def _trace_sample(
 
         tmp = jit_guard(tmp, "bounce-loop radiance")
         d = jit_guard(d, "final ray directions")
-    # deferred skybox fetch (:90-94), z-flipped lookup; the exit-time d IS
-    # each miss lane's miss direction (see the no-carry note above), and
-    # non-miss lanes point at a fixed direction so their (masked-out)
-    # gather taps all hit the same HBM line — the gather is random-access
-    # bound
-    missed = miss_rec
-    mdx = jnp.where(missed, d[0], 0.0)
-    mdy = jnp.where(missed, d[1], 0.0)
-    mdz = jnp.where(missed, -d[2], 1.0)
-    if rs.skybox_filter == "bilinear" and _use_mxu_sky(rs, k, sky_h, sky_w):
-        # MXU texture unit (ops/sky_mxu.py): true bilinear via tent-weight
-        # matmuls at single-tap cost; divergent packets take its tiered
-        # compacted-gather fallback. (Splitting this fetch by miss class —
-        # j=0 coherent vs j≥1 scattered — was measured-REJECTED on chip:
-        # config4 160.7 → 172.0, config5 20.3 → 21.5. The second analyze
-        # + kernel pass costs more than it saves because the compacted
-        # gather's cost is a per-tap floor insensitive to how many of its
-        # lanes are masked duplicates; see docs/roadmap.md round-3e.)
-        sky = sky_mxu.sample_cubemap_u32_mxu(
-            scene.skybox_u32, sky_h, sky_w, (mdx, mdy, mdz), missed,
-            rebin=_use_sky_rebin(rs), quad=scene.skybox_quad,
-        )
-    elif rs.skybox_filter == "bilinear":
-        sky = sample_cubemap_u32(
-            scene.skybox_u32, sky_h, sky_w, (mdx, mdy, mdz)
-        )
-    elif rs.skybox_filter == "nearest":
-        sky = sample_cubemap_u32_nearest(
-            scene.skybox_u32, sky_h, sky_w, (mdx, mdy, mdz)
-        )
-    else:  # "bilinear2x": single tap into the 2x-prefiltered map
-        sky = sample_cubemap_u32_nearest(
-            scene.skybox_u32_2x, 2 * sky_h, 2 * sky_w, (mdx, mdy, mdz)
-        )
-    return v3.where(missed, sky, tmp)
+    return _deferred_sky(scene, static, rs, miss_rec, d, tmp)
 
 
 def render_packets(
@@ -910,59 +415,35 @@ def render_packets(
     """Render packets of pixels → Vec3 color of (P, K) (sample-averaged).
 
     All spp sample waves are FOLDED into the packet dimension and traced in
-    one sweep (``fold_spp``): traversal latencies and the deferred skybox
-    fetch amortize over spp× packets instead of running spp sequential
-    waves. Per-lane sample indices drive the jitter seeds and the
-    ``0.9^sample_index`` decay exactly as the reference's sample loop
-    (``src/shader.rgen:70``)."""
+    one sweep (``fold_spp``): traversal and the deferred skybox fetch run
+    once over spp× packets instead of over spp sequential waves. Per-lane
+    sample indices drive the jitter seeds and the ``0.9^sample_index``
+    decay exactly as the reference's sample loop (``src/shader.rgen:70``)."""
     p, k = px.shape
     spp = rs.samples_per_pixel
 
     if rs.fold_spp and spp > 1:
-        # INTERLEAVED fold: packet t*spp+s = tile t, sample s — the spp
-        # near-identical sample packets sit adjacently so the megakernel
-        # can walk them as ONE consensus group (rs.sample_group)
+        # packet t*spp+s = tile t, sample s: the spp near-identical sample
+        # packets of one tile sit next to each other in the wave
         pxs = jnp.repeat(px, spp, axis=0)      # (spp·P, K)
         pys = jnp.repeat(py, spp, axis=0)
         act = jnp.repeat(active0, spp, axis=0)
         s_idx = jnp.tile(
             jnp.arange(spp, dtype=jnp.float32), (p,)
         )[:, None] * jnp.ones((1, k), jnp.float32)
-        rays6 = None
-        if raygen.use_raygen_kernel(rs.raygen, pxs.shape[0], k):
-            # fused Pallas raygen: packed rays in one pass (ops/raygen.py);
-            # o/d views below are pure slices of the same buffer, so every
-            # consumer (either bounce body, any tier) sees identical values
-            s_row = jnp.tile(jnp.arange(spp, dtype=jnp.float32), (p,))
-            rays6 = raygen.raygen_packed(camera, s_row, pxs, pys, spp,
-                                         rs.width, rs.height)
-            pw = pxs.shape[0]
-            o = tuple(rays6[c].reshape(pw, k) for c in range(3))
-            d = tuple(rays6[3 + c].reshape(pw, k) for c in range(3))
-        else:
-            o, d = primary_rays_soa((pxs, pys), camera, s_idx, spp,
-                                    rs.width, rs.height)
-        colors = _trace_sample(scene, static, rs, o, d, s_idx, act,
-                               group=rs.sample_group, rays6=rays6)
+        o, d = primary_rays_soa((pxs, pys), camera, s_idx, spp,
+                                rs.width, rs.height)
+        colors = _trace_sample(scene, static, rs, o, d, s_idx, act)
         return tuple(
             c.reshape(p, spp, k).mean(axis=1) for c in colors
         )  # :183
 
     def sample_body(i, accum):
-        rays6 = None
-        if raygen.use_raygen_kernel(rs.raygen, p, k):
-            s_row = jnp.broadcast_to(i.astype(jnp.float32), (p,))
-            rays6 = raygen.raygen_packed(camera, s_row, px, py, spp,
-                                         rs.width, rs.height)
-            o = tuple(rays6[c].reshape(p, k) for c in range(3))
-            d = tuple(rays6[3 + c].reshape(p, k) for c in range(3))
-        else:
-            o, d = primary_rays_soa(
-                (px, py), camera, i, spp, rs.width, rs.height
-            )
+        o, d = primary_rays_soa(
+            (px, py), camera, i, spp, rs.width, rs.height
+        )
         return v3.add(
-            accum,
-            _trace_sample(scene, static, rs, o, d, i, active0, rays6=rays6),
+            accum, _trace_sample(scene, static, rs, o, d, i, active0),
         )
 
     zero = jnp.zeros((p, k), jnp.float32)
@@ -970,9 +451,20 @@ def render_packets(
     return v3.scale(1.0 / spp, accum)  # :183
 
 
-# kept name for API continuity: flat (R, 2) pixel batches are reshaped into
-# packets of rs.packet_size (used by the sharded path, whose row slabs are
-# already coherent)
+def _pad_packets(planes, granule: int, fill):
+    """Pad (P, K) planes to a packet count that is a ``granule`` multiple;
+    padding packets take ``fill`` (dead lanes)."""
+    p = planes[0].shape[0]
+    pad = (-p) % granule
+    if not pad:
+        return planes
+    return tuple(
+        jnp.concatenate([x, jnp.full((pad,) + x.shape[1:], f, x.dtype)])
+        for x, f in zip(planes, fill)
+    )
+
+
+# flat (R, 2) pixel batches are reshaped into packets of rs.packet_size
 def render_pixels(
     scene: DeviceScene,
     static: SceneStatic,
@@ -980,18 +472,12 @@ def render_pixels(
     camera: jnp.ndarray,
     pix: jnp.ndarray,  # (R, 2)
 ) -> jnp.ndarray:
-    from raytpu.ops.mega import BLOCK_PACKETS  # noqa: F401 (granule docs)
-    from raytpu.ops.mega import SEG_PACKETS
-
     r = pix.shape[0]
     k = min(rs.packet_size, r)
     pad = (-r) % k
     px = jnp.pad(pix[:, 0], (0, pad)).reshape(-1, k)
     py = jnp.pad(pix[:, 1], (0, pad)).reshape(-1, k)
-    ppad = (-px.shape[0]) % SEG_PACKETS
-    if ppad:
-        px = jnp.concatenate([px, jnp.zeros((ppad, k), px.dtype)])
-        py = jnp.concatenate([py, jnp.zeros((ppad, k), py.dtype)])
+    px, py = _pad_packets((px, py), PACKET_GRANULE, (0, 0))
     active0 = (
         jnp.arange(px.size, dtype=jnp.int32).reshape(px.shape) < r
     )
@@ -1005,7 +491,9 @@ def _tiled_pixels(rs: RenderStatic):
     Returns ``(px, py)`` (P, K) float32, ``flat_idx`` (P, K) int32 =
     ``y*W + x`` (out-of-frame padding lanes get W*H, dropped at scatter),
     and ``in_frame`` (P, K) bool. Tile-major ordering is what makes packets
-    spatially coherent.
+    spatially coherent. The packet count is padded to a PACKET_GRANULE
+    multiple; padding packets are fully dead, so every sweep parks them at
+    once.
     """
     t = rs.tile
     w_t = -(-rs.width // t)
@@ -1020,26 +508,10 @@ def _tiled_pixels(rs: RenderStatic):
     )
     px = jnp.minimum(xs, rs.width - 1).astype(jnp.float32)
     py = jnp.minimum(ys, rs.height - 1).astype(jnp.float32)
-
-    # pad the packet count to a SEG_PACKETS multiple (covers the chain
-    # kernels' PACK_N, the megakernel's DMA block granule, the re-binner's
-    # sort segments, and keeps any spp-interleaved fold aligned); padding
-    # packets are fully dead, so every sweep culls them for free
-    from raytpu.ops.mega import SEG_PACKETS
-
-    p = px.shape[0]
-    pad = (-p) % SEG_PACKETS
-    if pad:
-        px = jnp.concatenate([px, jnp.zeros((pad, px.shape[1]), px.dtype)])
-        py = jnp.concatenate([py, jnp.zeros((pad, py.shape[1]), py.dtype)])
-        in_frame = jnp.concatenate(
-            [in_frame, jnp.zeros((pad, in_frame.shape[1]), bool)]
-        )
-        flat_idx = jnp.concatenate(
-            [flat_idx,
-             jnp.full((pad, flat_idx.shape[1]), rs.width * rs.height,
-                      jnp.int32)]
-        )
+    px, py, in_frame, flat_idx = _pad_packets(
+        (px, py, in_frame, flat_idx), PACKET_GRANULE,
+        (0, 0, False, rs.width * rs.height),
+    )
     return (px, py), flat_idx, in_frame
 
 
@@ -1062,12 +534,10 @@ def render_frame(
 
     chunk_packets = 0
     if rs.ray_chunk:
-        from raytpu.ops.mega import SEG_PACKETS
-
         chunk_packets = max(1, rs.ray_chunk // rs.packet_size)
-        # Pallas kernels require block-aligned packet counts (and the
-        # re-binner whole sort segments)
-        chunk_packets = -(-chunk_packets // SEG_PACKETS) * SEG_PACKETS
+        # whole granules per chunk, so each chunk keeps its compaction
+        # divisors
+        chunk_packets = -(-chunk_packets // PACKET_GRANULE) * PACKET_GRANULE
     if chunk_packets and chunk_packets < p:
         pad = (-p) % chunk_packets
         pad3 = ((0, pad), (0, 0))

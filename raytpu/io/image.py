@@ -7,7 +7,7 @@ Reference analogs:
   ``include/stb_image.h``), i.e. the cubemap layer order +X, −X, +Y, −Y,
   +Z, −Z required by Vulkan cube images;
 * writeback — the reference blits its storage image to a swapchain
-  (``src/main.cpp:2597-2735``); headless TPU rendering instead writes PNG/PPM
+  (``src/main.cpp:2597-2735``); headless rendering instead writes PNG/PPM
   files. The PNG encoder below is dependency-free (zlib from the stdlib), so
   output never depends on optional packages.
 

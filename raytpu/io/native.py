@@ -1,8 +1,8 @@
 """ctypes bindings for the native OBJ parser (``native/objparse.cpp``).
 
-Loads ``native/libraytpu_native.so`` when built (``make -C native``);
-``available()`` gates all callers so the pure-Python path is always a
-fallback.
+Loads ``native/libraytpu_native.so``, building it on first use
+(``raytpu/utils/native_lib.py``); ``available()`` gates all callers so the
+pure-Python path remains where no compiler exists.
 """
 
 from __future__ import annotations
@@ -13,27 +13,17 @@ from typing import Optional
 
 import numpy as np
 
-_LIB_PATH = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "native",
-    "libraytpu_native.so",
-)
+from raytpu.utils import native_lib
 
 _lib: Optional[ctypes.CDLL] = None
-_load_failed = False
 
 
 def _load() -> Optional[ctypes.CDLL]:
-    global _lib, _load_failed
-    if _lib is not None or _load_failed:
+    global _lib
+    if _lib is not None:
         return _lib
-    if not os.path.exists(_LIB_PATH):
-        _load_failed = True
-        return None
-    try:
-        lib = ctypes.CDLL(_LIB_PATH)
-    except OSError:
-        _load_failed = True
+    lib = native_lib.load()
+    if lib is None:
         return None
     lib.obj_parse_file.restype = ctypes.c_void_p
     lib.obj_parse_file.argtypes = [ctypes.c_char_p]

@@ -1,6 +1,6 @@
 """Wavefront OBJ mesh ingestion.
 
-TPU-native equivalent of the reference's tinyobjloader usage
+The equivalent of the reference's tinyobjloader usage
 (``src/main.cpp:51-63,1606-1654`` over ``include/tiny_obj_loader.h``):
 
 * only positions (``v``) and normals (``vn``) are consumed; texcoords and
@@ -230,3 +230,16 @@ def load_obj_numpy(path: str) -> Mesh:
     )
     mesh.validate()
     return mesh
+
+
+def write_obj(path: str, mesh: Mesh, mtllib: Optional[str] = None) -> None:
+    """Write ``mesh`` as OBJ with a position-aligned ``vn`` list (the layout
+    the reference's assets use); floats keep enough digits to read back
+    bit-exact."""
+    lines = [f"mtllib {mtllib}"] if mtllib else []
+    lines += [f"v {x:.9g} {y:.9g} {z:.9g}" for x, y, z in mesh.positions]
+    lines += [f"vn {x:.9g} {y:.9g} {z:.9g}" for x, y, z in mesh.normals]
+    lines += [f"f {a}//{a} {b}//{b} {c}//{c}"
+              for a, b, c in (mesh.triangles.astype(np.int64) + 1)]
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")

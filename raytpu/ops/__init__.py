@@ -8,15 +8,12 @@ from raytpu.ops.intersect import (
     safe_inverse,
 )
 from raytpu.ops.sky import cube_face_st, sample_cubemap
-from raytpu.ops.trace import any_hit, closest_hit
 
 __all__ = [
     "BIG_T",
     "Hit",
-    "any_hit",
     "brute_anyhit",
     "brute_closest",
-    "closest_hit",
     "cube_face_st",
     "moller_trumbore",
     "ray_aabb",

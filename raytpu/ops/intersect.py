@@ -1,9 +1,8 @@
-"""Ray–primitive intersection ops (vectorized, VPU-friendly).
+"""Ray–primitive intersection ops (vectorized).
 
-TPU-native replacement for the GPU's fixed-function traversal/intersection
-hardware invoked by ``traceRayEXT`` (``src/shader.rgen:86,111``). Everything
-here is SoA and batched over rays so XLA can map it onto (8, 128) vector
-tiles: no per-ray Python control flow, no dynamic shapes.
+Software replacement for the fixed-function traversal/intersection hardware
+invoked by ``traceRayEXT`` (``src/shader.rgen:86,111``). Everything here is
+batched over rays: no per-ray Python control flow, no dynamic shapes.
 
 Semantics:
 
@@ -34,25 +33,14 @@ DET_EPS = 1e-9
 # close over a jnp scalar would capture it as a constant operand ("captures
 # constants [f32[]]" error); python floats weakly type to f32 everywhere.
 BIG_T = 3.0e38
-# Max triangles tested per BVH leaf; traversal loops (XLA + Pallas) unroll
-# exactly this many intersection tests per leaf visit, and builders must not
-# emit larger leaves (enforced in raytpu/accel/__init__.py). RAYTPU_LEAF_SIZE
-# sets BOTH this unroll and RenderConfig.leaf_size's default. Capped at 15 —
-# the per-lane pair link word carries 4 cnt bits (bits 23-26, swap at 27;
-# kernels mask cnt with `& 15`).
+# Max triangles tested per BVH leaf; the XLA walks unroll exactly this many
+# intersection tests per leaf visit, and builders must not emit larger
+# leaves (enforced in raytpu/accel/__init__.py). RAYTPU_LEAF_SIZE sets BOTH
+# this unroll and RenderConfig.leaf_size's default. Capped at 15 — the GPU
+# kernel's node record keeps the leaf count in 4 bits (ops/bvh_kernel.py).
 #
-# Default 12, the round-4 leaf-densification result: fat SAH leaves
-# trade interior pair steps (gather-latency-bound, ~280 ns each) for
-# wider Moller-Trumbore unrolls inside the same drain (throughput work
-# the VPU overlaps). On-chip A/B, one process per leg, bit-identity gate
-# green at every probed size (tools/r8_leafwide*.sh; 4..7 from the
-# 3-bit-cap era first, 8..15 after the 4-bit cnt repack):
-#   leaf      4      6      7      8     10     12     15
-#   config4 122.8  112.7  110.9  107.7  104.1  100.8  101.4
-#   config5 18.05  17.58  17.43  17.06  16.92  16.33  16.55
-# reference 69.7 -> 60.7 at 4 -> 7; config1/2/3 neutral across 4 -> 7.
-# Minimum at 12 on both heavy presets; 15 regresses slightly, so the
-# 4-bit field cap is no longer binding.
+# Default 12: chosen by a leaf-size sweep before the move to the GPU and not
+# re-measured there (a sweep is queued in ROADMAP.md).
 LEAF_UNROLL = int(os.environ.get("RAYTPU_LEAF_SIZE", "12"))
 assert 1 <= LEAF_UNROLL <= 15, "RAYTPU_LEAF_SIZE must be in [1, 15]"
 
@@ -123,12 +111,8 @@ def ray_aabb(
     # 0·inf NaNs (origin component exactly on a slab plane with a zero
     # direction component) must not constrain: the ray lies in the slab,
     # so that axis contributes (-inf, +inf).
-    # NOTE: the Pallas slab tests (traverse_pallas._slab / mega._slab_tab)
-    # intentionally PROPAGATE that NaN (compares false → node skipped) to
-    # keep the hot loop minimal; for such measure-zero rays traversal="xla"
-    # may therefore report a hit this path finds via a node the Pallas
-    # walks skip. The bit-identity invariant pairs are pallas↔mega (which
-    # share the NaN behavior), not xla↔pallas.
+    # The packet walk (ops/packet.py) propagates that NaN instead (node
+    # skipped), so on such measure-zero rays the walks may disagree.
     lo = jnp.minimum(t0, t1)
     hi = jnp.maximum(t0, t1)
     lo = jnp.where(jnp.isnan(lo), -jnp.inf, lo)

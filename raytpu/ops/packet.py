@@ -3,17 +3,14 @@
 Rays are grouped into spatially-coherent packets (pixel tiles); each
 *packet* — not each ray — carries one node pointer into the threaded
 (skip-link) BVH, so node fetch is a tiny (P,)-row gather and all tests are
-dense (P, K) VPU ops with **no per-ray gathers** and no (…, 3)-minor-axis
+dense (P, K) elementwise ops with **no per-ray gathers** and no (…, 3)-minor-axis
 arrays (see ``ops/vec3.py`` for the layout rule).
 
-This is the portable implementation of the same algorithm the Pallas kernel
-(``traverse_pallas.py``) runs natively; it serves CPU tests and as the
-fallback where Pallas is unavailable. Per-lane correctness is exact: packets
-share only the traversal ORDER (conservative — a packet may visit nodes some
-lanes don't need, never the reverse).
-
-Replaces ``traceRayEXT`` (``src/shader.rgen:86,111``) per-thread hardware
-traversal with the shape a vector machine likes.
+This is the plain XLA walk: the traversal path on the CPU, and the
+reference the GPU kernel (``ops/bvh_kernel.py``) is compared with on the
+card. Per-lane correctness is exact: packets share only the traversal ORDER
+(conservative — a packet may visit nodes some lanes don't need, never the
+reverse).
 """
 
 from __future__ import annotations
@@ -24,7 +21,6 @@ import jax
 import jax.numpy as jnp
 
 from raytpu.device_scene import DeviceScene, SceneStatic
-from raytpu.ops import vec3 as v3
 from raytpu.ops.intersect import BIG_T, LEAF_UNROLL
 
 

@@ -3,8 +3,8 @@
 Elementwise ray-batch translations of the raygen shader's material branches
 (``src/shader.rgen:97-177``). All functions are mask-free — the integrator
 applies material masks via ``jnp.where`` so every lane computes every branch
-(the standard SIMD Whitted formulation; branches are cheap VPU math, only
-traversal is expensive).
+(the standard SIMD Whitted formulation; branches are cheap elementwise
+math, only traversal is expensive).
 
 Faithfully reproduced quirks (these ARE the reference semantics):
 
@@ -44,7 +44,7 @@ def ambient_color(dtype=jnp.float32) -> jnp.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# component-SoA variants (the TPU wave path; see ops/vec3.py for why)
+# component-SoA variants (the wave path; see ops/vec3.py for why)
 # ---------------------------------------------------------------------------
 
 from raytpu.ops import vec3 as v3  # noqa: E402

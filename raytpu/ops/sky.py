@@ -1,6 +1,6 @@
 """Cubemap skybox sampling.
 
-TPU-native replacement for ``texture(samplerCube, dir)`` — the reference
+Software replacement for ``texture(samplerCube, dir)`` — the reference
 binds a 6-layer cube image with a LINEAR, CLAMP_TO_EDGE sampler
 (``src/main.cpp:2376-2412``) and samples it on ray miss with the direction
 ``(d.x, d.y, -d.z)`` (``src/shader.rgen:92``; the z-flip is applied by the
@@ -113,10 +113,9 @@ def sample_cubemap_u32_nearest(skybox_u32: jnp.ndarray, h: int, w: int, dirs):
 def sample_cubemap_u32(skybox_u32: jnp.ndarray, h: int, w: int, dirs):
     """Bilinear cube-map lookup from RGB8-packed-uint32 texels.
 
-    ONE per-lane gather per bilinear tap (4 total) instead of three —
-    XLA TPU gathers cost ~7ns/lane each, so halving the tap count matters
-    more than anything else in the miss path. Unpacking is cheap VPU bit
-    math; sources are 8-bit JPEG faces, so packing loses nothing.
+    ONE per-lane gather per bilinear tap (4 total) instead of one per
+    channel. Unpacking is cheap bit math; sources are 8-bit faces, so
+    packing loses nothing.
 
     ``skybox_u32``: (6·H·W,) uint32 (R | G<<8 | B<<16); ``dirs``: Vec3.
     Returns a Vec3 of linear RGB in [0, 1].
@@ -136,97 +135,6 @@ def sample_cubemap_u32(skybox_u32: jnp.ndarray, h: int, w: int, dirs):
     for c in range(3):
         top = c00[c] * (1 - wx) + c01[c] * wx
         bot = c10[c] * (1 - wx) + c11[c] * wx
-        out.append(top * (1 - wy) + bot * wy)
-    return tuple(out)
-
-
-def sample_cubemap_u32_quad(skybox_quad, h: int, w: int, dirs):
-    """Bilinear lookup from the per-channel QUAD-packed map — ideally ONE
-    row gather per lane (interleaved layout), else one gather per channel.
-
-    ``skybox_quad``: the quad table, accepted in FOUR layouts
-    (tools/r7_skyquad_ab.py + r9_gatherprobe3.py exercise them):
-    INTERLEAVED (6·H·W, 3) — the default since round 4 — one gather of a
-    contiguous 3-word row per lane; a tuple of three (6·H·W,) uint32
-    arrays; one (3, 6·H·W) stacked array (sliced per channel — XLA
-    re-lays-out all 3×6HW words every frame); or one FLAT (3·6·H·W,)
-    array indexed at ``c·6HW + idx``. Word (c, f·H·W + y·W + x) =
-    ``c[y,x] | c[y,x1]<<8 | c[y1,x]<<16 | c[y1,x1]<<24`` with clamp-to-edge
-    x1/y1 (built in ``device_scene.build_device_scene``). BIT-IDENTICAL to
-    :func:`sample_cubemap_u32` in every layout: same texel bytes, same
-    unpack constants, same weight-combine order. The gather is charged
-    per INDEX, not per word (device-time probe tools/r9_gatherprobe3.py:
-    three planar gathers 18.5 ms vs one interleaved row gather 5.6 ms at
-    the 512-packet tier, 4.4 vs 1.4 at 128 — a 3.3x cut), so the
-    interleaved row is the fast layout; the per-channel layouts are kept
-    as measured A/B surfaces.
-    """
-    face, s, t = face_st(*dirs)
-    x0c, x1c, y0c, y1c, wx, wy = _bilinear_coords(s, t, h, w)
-    del x1c, y1c  # the quad word holds the HIGH-clamped +1 taps
-    # LOW-edge clamp (floor lands at -1, both taps collapse onto texel 0):
-    # the quad word at the clamped origin still holds texel 1 / row 1 in
-    # its +1 slots, so select the collapsed taps explicitly — keeps the
-    # weight-combine arithmetic identical to sample_cubemap_u32 (which
-    # blends the DUPLICATED tap with the same nonzero weight there)
-    x_edge = jnp.floor(s * w - 0.5) < 0.0
-    y_edge = jnp.floor(t * h - 0.5) < 0.0
-    idx = face * (h * w) + y0c * w + x0c
-    inv = jnp.float32(1.0 / 255.0)
-    is_arr = not isinstance(skybox_quad, (tuple, list))
-    flat = is_arr and skybox_quad.ndim == 1
-    interleaved = (is_arr and skybox_quad.ndim == 2
-                   and skybox_quad.shape[1] == 3)
-    rows = jnp.take(skybox_quad, idx, axis=0) if interleaved else None
-    out = []
-    for c in range(3):
-        if interleaved:
-            word = rows[..., c]
-        elif flat:
-            word = jnp.take(skybox_quad, c * (6 * h * w) + idx, axis=0)
-        else:
-            word = jnp.take(skybox_quad[c], idx, axis=0)
-        c00 = (word & 0xFF).astype(jnp.float32) * inv
-        c01 = ((word >> 8) & 0xFF).astype(jnp.float32) * inv
-        c10 = ((word >> 16) & 0xFF).astype(jnp.float32) * inv
-        c11 = ((word >> 24) & 0xFF).astype(jnp.float32) * inv
-        c01 = jnp.where(x_edge, c00, c01)
-        c11 = jnp.where(x_edge, c10, c11)
-        c10 = jnp.where(y_edge, c00, c10)
-        c11 = jnp.where(y_edge, c01, c11)
-        top = c00 * (1 - wx) + c01 * wx
-        bot = c10 * (1 - wx) + c11 * wx
-        out.append(top * (1 - wy) + bot * wy)
-    return tuple(out)
-
-
-def sample_cubemap_soa(skybox_soa: jnp.ndarray, h: int, w: int, dirs):
-    """Component-SoA bilinear cube-map lookup from float channel planes.
-
-    ``skybox_soa``: (3, 6·H·W) float32 channel planes; ``dirs``: a Vec3
-    (tuple of 3 same-shape arrays). Returns a Vec3 of linear RGB. Gathers
-    are per-channel from contiguous 1-D planes — the layout-friendly form
-    (see ops/vec3.py). Kept for full-precision comparisons; the render path
-    uses the packed-u32 variants above.
-    """
-    face, s, t = face_st(*dirs)
-    x0c, x1c, y0c, y1c, wx, wy = _bilinear_coords(s, t, h, w)
-    base = face * (h * w)
-
-    i00 = base + y0c * w + x0c
-    i01 = base + y0c * w + x1c
-    i10 = base + y1c * w + x0c
-    i11 = base + y1c * w + x1c
-
-    out = []
-    for c in range(3):
-        plane = skybox_soa[c]
-        c00 = jnp.take(plane, i00, axis=0)
-        c01 = jnp.take(plane, i01, axis=0)
-        c10 = jnp.take(plane, i10, axis=0)
-        c11 = jnp.take(plane, i11, axis=0)
-        top = c00 * (1 - wx) + c01 * wx
-        bot = c10 * (1 - wx) + c11 * wx
         out.append(top * (1 - wy) + bot * wy)
     return tuple(out)
 

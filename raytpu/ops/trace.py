@@ -1,21 +1,19 @@
 """Scene-level trace: two-level (instance → mesh) closest-hit / any-hit.
 
-The TPU-native replacement for ``traceRayEXT`` against a TLAS
+The replacement for ``traceRayEXT`` against a TLAS
 (``src/shader.rgen:86,111``): rays are transformed into each instance's
 object space by the inverse instance transform (what the driver's TLAS
-traversal does in hardware) and tested against that mesh's geometry — brute
-force or threaded-BVH traversal depending on what is attached — keeping the
-closest world-parameterized ``t`` across instances.
+traversal does in hardware) and tested against that mesh's geometry,
+keeping the closest world-parameterized ``t`` across instances.
 
-On the TPU hot path the flattened (instance, chunk) entry list is a GRID
-AXIS of the persistent megakernel (``ops/mega.py``) — one ``pallas_call``
-regardless of instance count, with per-entry root-box culling in the
-prepass — so instance count scales without per-instance dispatches. The
-CPU/fallback paths unroll a per-instance Python loop under jit (fine at
-reference scale; the reference itself is fixed at 2 instances,
-``include/config.h:6-16``). For scenes with very many instances the
-remaining extension point is a top-level BVH over instance AABBs feeding
-the same entry list.
+``static.traversal`` picks the walk, resolved once at scene build
+(``accel.resolve_traversal``):
+
+* ``"kernel"`` — the per-ray GPU kernel (``ops/bvh_kernel.py``), which
+  runs the instance loop itself;
+* ``"xla"`` — the packet walk (``ops/packet.py``), one ``lax.while_loop``
+  per instance, the CPU path and the plain reference on the card;
+* no BVH attached — brute force over every triangle.
 """
 
 from __future__ import annotations
@@ -25,103 +23,32 @@ from typing import NamedTuple
 import jax.numpy as jnp
 
 from raytpu.device_scene import DeviceScene, SceneStatic
-from raytpu.ops.intersect import (
-    BIG_T,
-    Hit,
-    brute_anyhit,
-    brute_closest,
-)
-
-
-def _to_object_space(w2o_i: jnp.ndarray, o: jnp.ndarray, d: jnp.ndarray):
-    """Transform world rays into one instance's object space.
-
-    Direction is NOT renormalized so ``t`` stays in world units
-    (see ops/intersect.py module docstring).
-    """
-    lin = w2o_i[:, :3]  # (3, 3)
-    trans = w2o_i[:, 3]  # (3,)
-    o_obj = o @ lin.T + trans
-    d_obj = d @ lin.T
-    return o_obj, d_obj
-
-
-def closest_hit(
-    scene: DeviceScene,
-    static: SceneStatic,
-    o: jnp.ndarray,     # (R, 3) world-space origins
-    d: jnp.ndarray,     # (R, 3) world-space directions (normalized)
-    tmin: float,
-    tmax: jnp.ndarray,  # (R,) or scalar
-) -> Hit:
-    """Closest hit over all instances. ``prim`` in the result is the GLOBAL
-    primitive index (into the concatenated triangle arrays) — the analog of
-    the offset arithmetic in ``src/shader.rchit:52-61``."""
-    r = o.shape[0]
-    best = Hit(
-        t=jnp.broadcast_to(jnp.asarray(tmax, jnp.float32), (r,)),
-        prim=jnp.full((r,), -1, jnp.int32),
-        inst=jnp.full((r,), -1, jnp.int32),
-        u=jnp.zeros((r,), jnp.float32),
-        v=jnp.zeros((r,), jnp.float32),
-    )
-    for inst_id, mesh_id in static.traversal_list:
-        o_obj, d_obj = _to_object_space(scene.w2o[inst_id], o, d)
-        if static.has_bvh:
-            from raytpu.ops.traverse import bvh_closest
-
-            t, prim, u, v = bvh_closest(
-                scene, static, mesh_id, o_obj, d_obj, tmin, best.t
-            )
-        else:
-            start, count = static.mesh_prim_ranges[mesh_id]
-            t, prim, u, v = brute_closest(
-                o_obj,
-                d_obj,
-                scene.tri_v0[start : start + count],
-                scene.tri_e1[start : start + count],
-                scene.tri_e2[start : start + count],
-                tmin,
-                best.t,
-            )
-            prim = jnp.where(prim >= 0, prim + start, prim)
-        better = (prim >= 0) & (t < best.t)
-        best = Hit(
-            t=jnp.where(better, t, best.t),
-            prim=jnp.where(better, prim, best.prim),
-            inst=jnp.where(better, jnp.int32(inst_id), best.inst),
-            u=jnp.where(better, u, best.u),
-            v=jnp.where(better, v, best.v),
-        )
-    return Hit(
-        t=jnp.where(best.prim >= 0, best.t, BIG_T),
-        prim=best.prim,
-        inst=best.inst,
-        u=best.u,
-        v=best.v,
-    )
+from raytpu.ops import vec3 as v3
+from raytpu.ops.intersect import BIG_T, brute_anyhit, brute_closest
 
 
 class HitWave(NamedTuple):
-    """Shading-ready closest-hit result for a packet wave.
-
-    Everything shading needs is merged gather-free at instance-merge time:
-    the world-space shading normal (kernel-interpolated + instance
-    inverse-transpose transform, ``src/shader.rchit:93-94``) and the
-    per-lane material id. ``prim``/``inst`` are retained for tests/debug
-    (``prim`` costs one gather — only computed on the CPU fallback paths)."""
+    """Shading-ready closest-hit result for a packet wave: the world-space
+    unit shading normal (interpolated + instance inverse-transpose,
+    ``src/shader.rchit:93-94``) and the per-lane material id, with the hit
+    record beside them."""
 
     t: jnp.ndarray       # (P, K) float32, BIG_T on miss
     valid: jnp.ndarray   # (P, K) bool
     mat: jnp.ndarray     # (P, K) int32 material type of hit instance
     n: tuple             # Vec3 of (P, K): world-space unit shading normal
     inst: jnp.ndarray    # (P, K) int32 instance id, -1 on miss
+    prim: jnp.ndarray    # (P, K) int32 global primitive id, -1 on miss
     u: jnp.ndarray
     v: jnp.ndarray
 
     @property
     def is_hit(self) -> jnp.ndarray:
         return self.valid
+
+
+def _use_kernel(static: SceneStatic) -> bool:
+    return static.has_bvh and static.traversal == "kernel"
 
 
 def closest_hit_wave(
@@ -131,126 +58,30 @@ def closest_hit_wave(
     d,                  # Vec3 of (P, K)
     tmin: float,
     tmax: jnp.ndarray,  # (P, K) or scalar
-    group: int = 1,     # spp-grouped consensus width (megakernel path)
-    sparse: str = "off",  # divergence scheduling before the sweep
-                          # (ops/rebin.py "split"/"sort"), mega path only
-    tier: str = "loop",   # "primary" (peeled j=0 sweep) | "loop":
-                          # traversal="hybrid" routes primary sweeps to
-                          # the per-lane tier, bounce sweeps to mega
 ) -> HitWave:
-    """Packet-layout closest hit over all instances (the TPU hot path;
-    per-packet consensus traversal, see ``ops/packet.py`` /
-    ``ops/traverse_pallas.py``).
-
-    Component-SoA interface (ops/vec3.py): ``o``/``d`` are tuples of three
-    (P, K) arrays."""
-    from raytpu.ops import vec3 as v3
-
+    """Packet-layout closest hit over all instances (component-SoA:
+    ``o``/``d`` are tuples of three (P, K) arrays, ``ops/vec3.py``)."""
     p, k = o[0].shape
+    if _use_kernel(static):
+        from raytpu.ops import bvh_kernel
 
-    # two-level per-lane tier (ops/perlane.py): consensus top tree +
-    # per-lane treelet walks — the fastest path where attached
-    if _use_perlane(static, p, k, tier):
-        from raytpu.ops.perlane import perlane_closest_sweep
-        from raytpu.ops.traverse_pallas import (
-            make_trace_state,
-            pack_rays,
-            unpack_state,
-        )
+        flat = tuple(x.reshape(-1) for x in (*o, *d))
+        win = jnp.broadcast_to(jnp.asarray(tmax, jnp.float32), (p, k))
+        h = bvh_kernel.closest(scene, static, flat[:3], flat[3:], tmin,
+                               win.reshape(-1), interpret=static.interpret)
+        valid = h.slot >= 0
+        prim = jnp.where(
+            valid, jnp.take(scene.bvh_tri_prim, jnp.maximum(h.slot, 0)), -1)
+        mat = jnp.where(
+            valid, jnp.take(scene.materials, jnp.maximum(h.inst, 0)), 0)
 
-        tmax_pk = jnp.broadcast_to(jnp.asarray(tmax, jnp.float32), (p, k))
-        rays = pack_rays(o, d)
-        state = make_trace_state(tmax_pk)
-        state = perlane_closest_sweep(scene, static, rays, tmin, state)
-        t, valid, mat, inst, n, u, v = unpack_state(state, p, k)
+        def pk(x):
+            return x.reshape(p, k)
+
         return HitWave(
-            t=jnp.where(valid, t, BIG_T),
-            valid=valid,
-            mat=mat,
-            n=v3.normalize(n),
-            inst=inst,
-            u=u,
-            v=v,
-        )
-
-    # the whole (instance x chunk) sweep as ONE persistent megakernel
-    # (ops/mega.py) — tables DMA'd per chunk, culled blocks free
-    if _use_mega(static, p, k):
-        from raytpu.ops.mega import mega_closest_sweep
-        from raytpu.ops.traverse_pallas import (
-            make_trace_state,
-            pack_rays,
-            unpack_state,
-        )
-
-        tmax_pk = jnp.broadcast_to(jnp.asarray(tmax, jnp.float32), (p, k))
-        seg = 0
-        split = 0
-        g = group
-        if sparse == "sort":
-            from raytpu.ops import rebin as rb
-
-            sigma, rank, seg = rb.rebin_perm(
-                rb.octant_key(d, tmax_pk > tmin)
-            )
-            if seg:
-                o = rb.permute_vec3(o, sigma)
-                d = rb.permute_vec3(d, sigma)
-                tmax_pk = rb.permute(tmax_pk, sigma)
-        elif sparse in ("split", "split_all") and group in (2, 4):
-            from raytpu.ops import rebin as rb
-
-            if rb.can_split(p, k, group):
-                o = rb.tile_split_vec3(o, group)
-                d = rb.tile_split_vec3(d, group)
-                tmax_pk = rb.tile_split(tmax_pk, group)
-                split = group
-                g = 1  # a packet now holds all samples of one sub-tile
-        rays = pack_rays(o, d)
-        state = make_trace_state(tmax_pk)
-        state = mega_closest_sweep(scene, static, rays, tmin, state, g)
-        if seg:
-            state = rb.permute_planes(state, rank)
-        if split:
-            state = rb.tile_split_planes(state, split, merge=True)
-        t, valid, mat, inst, n, u, v = unpack_state(state, p, k)
-        return HitWave(
-            t=jnp.where(valid, t, BIG_T),
-            valid=valid,
-            mat=mat,
-            n=v3.normalize(n),
-            inst=inst,
-            u=u,
-            v=v,
-        )
-
-    # fast path: every traversal mesh Pallas-resident → chained kernels with
-    # in-kernel transform + in-place merge (zero XLA glue per chunk)
-    if _all_pallas(static, k):
-        from raytpu.ops.traverse_pallas import (
-            make_trace_state,
-            pack_rays,
-            pallas_closest_chain,
-            unpack_state,
-        )
-
-        tmax_pk = jnp.broadcast_to(jnp.asarray(tmax, jnp.float32), (p, k))
-        live = jnp.any(tmax_pk > tmin, axis=1).astype(jnp.int32)
-        rays = pack_rays(o, d)
-        state = make_trace_state(tmax_pk)
-        for inst_id, mesh_id in static.traversal_list:
-            state = pallas_closest_chain(
-                scene, static, mesh_id, inst_id, rays, tmin, live, state
-            )
-        t, valid, mat, inst, n, u, v = unpack_state(state, p, k)
-        return HitWave(
-            t=jnp.where(valid, t, BIG_T),
-            valid=valid,
-            mat=mat,
-            n=v3.normalize(n),
-            inst=inst,
-            u=u,
-            v=v,
+            t=pk(h.t), valid=pk(valid), mat=pk(mat),
+            n=v3.normalize(tuple(pk(c) for c in h.n)),
+            inst=pk(h.inst), prim=pk(prim), u=pk(h.u), v=pk(h.v),
         )
 
     zero = jnp.zeros((p, k), jnp.float32)
@@ -259,6 +90,7 @@ def closest_hit_wave(
     best_mat = jnp.zeros((p, k), jnp.int32)
     best_n = (zero, zero, zero + 1.0)
     best_inst = jnp.full((p, k), -1, jnp.int32)
+    best_prim = jnp.full((p, k), -1, jnp.int32)
     best_u = zero
     best_v = zero
 
@@ -266,21 +98,12 @@ def closest_hit_wave(
         w2o_i = scene.w2o[inst_id]
         o_obj = v3.affine_rows(w2o_i, o)
         d_obj = v3.linear_rows(w2o_i, d)
-        if static.has_bvh and _use_pallas(static, mesh_id, k):
-            from raytpu.ops.traverse_pallas import pallas_closest
-
-            t, slot, u, v, n_obj = pallas_closest(
-                scene, static, mesh_id, o_obj, d_obj, tmin, best_t
-            )
-            found = slot >= 0
-        elif static.has_bvh:
+        if static.has_bvh:
             from raytpu.ops.packet import packet_closest
 
             t, prim, u, v = packet_closest(
                 scene, static, mesh_id, o_obj, d_obj, tmin, best_t
             )
-            found = prim >= 0
-            n_obj = _normals_by_prim(scene, prim, u, v)
         else:
             start, count = static.mesh_prim_ranges[mesh_id]
             t, prim, u, v = brute_closest(
@@ -295,17 +118,18 @@ def closest_hit_wave(
             t = t.reshape(p, k)
             prim = jnp.where(prim >= 0, prim + start, prim).reshape(p, k)
             u, v = u.reshape(p, k), v.reshape(p, k)
-            found = prim >= 0
-            n_obj = _normals_by_prim(scene, prim, u, v)
+        found = prim >= 0
+        n_obj = _normals_by_prim(scene, prim, u, v)
 
         # world normal via inverse-transpose (row-vector · W2O linear,
-        # src/shader.rchit:94) — scalar-coefficient math, no gathers
+        # src/shader.rchit:94)
         n_world = v3.linear_cols(w2o_i, n_obj)
 
         better = found & (t < best_t)
         best_valid = best_valid | better
         best_mat = jnp.where(better, scene.materials[inst_id], best_mat)
         best_inst = jnp.where(better, jnp.int32(inst_id), best_inst)
+        best_prim = jnp.where(better, prim, best_prim)
         best_n = v3.where(better, n_world, best_n)
         best_u = jnp.where(better, u, best_u)
         best_v = jnp.where(better, v, best_v)
@@ -317,6 +141,7 @@ def closest_hit_wave(
         mat=best_mat,
         n=v3.normalize(best_n),
         inst=best_inst,
+        prim=best_prim,
         u=best_u,
         v=best_v,
     )
@@ -324,8 +149,7 @@ def closest_hit_wave(
 
 def _normals_by_prim(scene: DeviceScene, prim, u, v):
     """Barycentric normal interpolation via per-lane gathers from the
-    prim-ordered tables (CPU/fallback paths only — the Pallas kernel
-    interpolates in SMEM)."""
+    prim-ordered tables."""
     p = jnp.maximum(prim, 0)
     w = 1.0 - u - v
     return tuple(
@@ -343,102 +167,27 @@ def any_hit_wave(
     d,                  # Vec3 of (P, K)
     tmin: float,
     tmax: jnp.ndarray,  # (P, K)
-    group: int = 1,
-    sparse: str = "off",  # divergence scheduling (ops/rebin.py): shadow
-                          # waves are sparse — "split" walks sub-tile
-                          # packets, "sort" packs live lanes
-    tier: str = "loop",   # see closest_hit_wave
-    order: str = "origin",  # entry order (ops/mega.entry_perm)
 ) -> jnp.ndarray:
-    """Packet-layout occlusion query over all instances (component-SoA)."""
-    from raytpu.ops import vec3 as v3
-
+    """Packet-layout occlusion query over all instances (shadow rays,
+    ``src/shader.rgen:111-112``)."""
     p, k = o[0].shape
+    if _use_kernel(static):
+        from raytpu.ops import bvh_kernel
 
-    if _use_perlane(static, p, k, tier):
-        from raytpu.ops.perlane import perlane_anyhit_sweep
-        from raytpu.ops.traverse_pallas import pack_rays
-
-        tmax_pk = jnp.broadcast_to(jnp.asarray(tmax, jnp.float32), (p, k))
-        rays = pack_rays(o, d)
-        tmax_reg = tmax_pk.reshape(p, 8, 128)
-        occ = jnp.zeros((p, 8, 128), jnp.int32)
-        occ = perlane_anyhit_sweep(scene, static, rays, tmin, tmax_reg,
-                                   occ, order=order)
-        return occ.reshape(p, k) != 0
-
-    if _use_mega(static, p, k):
-        from raytpu.ops.mega import mega_anyhit_sweep
-        from raytpu.ops.traverse_pallas import pack_rays
-
-        tmax_pk = jnp.broadcast_to(jnp.asarray(tmax, jnp.float32), (p, k))
-        seg = 0
-        split = 0
-        g = group
-        if sparse == "sort":
-            from raytpu.ops import rebin as rb
-
-            sigma, rank, seg = rb.rebin_perm(
-                rb.octant_key(d, tmax_pk > tmin)
-            )
-            if seg:
-                o = rb.permute_vec3(o, sigma)
-                d = rb.permute_vec3(d, sigma)
-                tmax_pk = rb.permute(tmax_pk, sigma)
-        elif sparse in ("split", "split_all") and group in (2, 4):
-            from raytpu.ops import rebin as rb
-
-            if rb.can_split(p, k, group):
-                o = rb.tile_split_vec3(o, group)
-                d = rb.tile_split_vec3(d, group)
-                tmax_pk = rb.tile_split(tmax_pk, group)
-                split = group
-                g = 1
-        rays = pack_rays(o, d)
-        tmax_reg = tmax_pk.reshape(p, 8, 128)
-        occ = jnp.zeros((p, 8, 128), jnp.int32)
-        occ = mega_anyhit_sweep(scene, static, rays, tmin, tmax_reg, occ,
-                                g, order=order)
-        occ = occ.reshape(p, k)
-        if seg:
-            occ = rb.permute(occ, rank)
-        if split:
-            occ = rb.tile_merge(occ, split)
-        return occ != 0
-
-    if _all_pallas(static, k):
-        from raytpu.ops.traverse_pallas import (
-            K_LANE,
-            K_SUB,
-            pack_rays,
-            pallas_anyhit_chain,
-        )
-
-        tmax_pk = jnp.broadcast_to(jnp.asarray(tmax, jnp.float32), (p, k))
-        live = jnp.any(tmax_pk > tmin, axis=1).astype(jnp.int32)
-        rays = pack_rays(o, d)
-        tmax_reg = tmax_pk.reshape(p, K_SUB, K_LANE)
-        occ = jnp.zeros((p, K_SUB, K_LANE), jnp.int32)
-        for inst_id, mesh_id in static.traversal_list:
-            occ = pallas_anyhit_chain(
-                scene, static, mesh_id, inst_id, rays, tmin, live,
-                tmax_reg, occ,
-            )
-        return occ.reshape(p, k) != 0
+        flat = tuple(x.reshape(-1) for x in (*o, *d))
+        win = jnp.broadcast_to(jnp.asarray(tmax, jnp.float32), (p, k))
+        occ = bvh_kernel.anyhit(scene, static, flat[:3], flat[3:], tmin,
+                                win.reshape(-1), interpret=static.interpret)
+        return occ.reshape(p, k)
 
     occluded = jnp.zeros((p, k), bool)
     for inst_id, mesh_id in static.traversal_list:
         w2o_i = scene.w2o[inst_id]
         o_obj = v3.affine_rows(w2o_i, o)
         d_obj = v3.linear_rows(w2o_i, d)
+        # already-occluded lanes get tmax=0 → trivially rejected everywhere
         lane_tmax = jnp.where(occluded, 0.0, tmax)
-        if static.has_bvh and _use_pallas(static, mesh_id, k):
-            from raytpu.ops.traverse_pallas import pallas_anyhit
-
-            occ = pallas_anyhit(
-                scene, static, mesh_id, o_obj, d_obj, tmin, lane_tmax
-            )
-        elif static.has_bvh:
+        if static.has_bvh:
             from raytpu.ops.packet import packet_anyhit
 
             occ = packet_anyhit(
@@ -455,213 +204,5 @@ def any_hit_wave(
                 tmin,
                 lane_tmax.reshape(-1),
             ).reshape(p, k)
-        occluded = occluded | occ
-    return occluded
-
-
-def packed_tier_available(static: SceneStatic, p: int, k: int,
-                          tier: str = "loop") -> bool:
-    """True when SOME packed-ABI sweep tier (perlane / mega / chained
-    Pallas) will serve a (p, k) wave — the precondition for the fused
-    bounce-epilogue path (``ops/epilogue.py``), which carries the packed
-    ray/state buffers through the loop instead of unpacking per bounce."""
-    return (
-        _use_perlane(static, p, k, tier)
-        or _use_mega(static, p, k)
-        or _all_pallas(static, k)
-    )
-
-
-def closest_sweep_packed(
-    scene: DeviceScene,
-    static: SceneStatic,
-    rays: jnp.ndarray,     # (6, P, 8, 128) packed world rays
-    tmin: float,
-    state: jnp.ndarray,    # (9, P, 8, 128) fresh packed state
-    group: int = 1,
-    tier: str = "loop",
-) -> jnp.ndarray:
-    """Closest-hit sweep on the packed ABI (state in, merged state out) —
-    the fused bounce loop's trace step. Dispatches exactly like
-    :func:`closest_hit_wave` minus the unpack/normalize epilogue (the
-    fused shade kernel normalizes in-kernel)."""
-    p = rays.shape[1]
-    from raytpu.ops.traverse_pallas import PACKET_K
-
-    if _use_perlane(static, p, PACKET_K, tier):
-        from raytpu.ops.perlane import perlane_closest_sweep
-
-        return perlane_closest_sweep(scene, static, rays, tmin, state)
-    if _use_mega(static, p, PACKET_K):
-        from raytpu.ops.mega import mega_closest_sweep
-
-        return mega_closest_sweep(scene, static, rays, tmin, state, group)
-    # chained per-chunk Pallas kernels (the TPU gate's reference tier)
-    from raytpu.ops.traverse_pallas import ST_T, pallas_closest_chain
-
-    live = jnp.any(
-        state[ST_T].reshape(p, -1) > tmin, axis=1
-    ).astype(jnp.int32)
-    for inst_id, mesh_id in static.traversal_list:
-        state = pallas_closest_chain(
-            scene, static, mesh_id, inst_id, rays, tmin, live, state
-        )
-    return state
-
-
-def anyhit_sweep_packed(
-    scene: DeviceScene,
-    static: SceneStatic,
-    rays: jnp.ndarray,      # (6, P, 8, 128) packed shadow rays
-    tmin: float,
-    tmax_reg: jnp.ndarray,  # (P, 8, 128) per-lane occlusion window
-    group: int = 1,
-    tier: str = "loop",
-    order: str = "origin",  # entry order (ops/mega.entry_perm)
-) -> jnp.ndarray:
-    """Occlusion sweep on the packed ABI → (P, 8, 128) i32 occ flags."""
-    p = rays.shape[1]
-    from raytpu.ops.traverse_pallas import K_LANE, K_SUB, PACKET_K
-
-    occ = jnp.zeros((p, K_SUB, K_LANE), jnp.int32)
-    if _use_perlane(static, p, PACKET_K, tier):
-        from raytpu.ops.perlane import perlane_anyhit_sweep
-
-        return perlane_anyhit_sweep(scene, static, rays, tmin, tmax_reg,
-                                    occ, order=order)
-    if _use_mega(static, p, PACKET_K):
-        from raytpu.ops.mega import mega_anyhit_sweep
-
-        return mega_anyhit_sweep(scene, static, rays, tmin, tmax_reg, occ,
-                                 group, order=order)
-    from raytpu.ops.traverse_pallas import pallas_anyhit_chain
-
-    live = jnp.any(
-        tmax_reg.reshape(p, -1) > tmin, axis=1
-    ).astype(jnp.int32)
-    for inst_id, mesh_id in static.traversal_list:
-        occ = pallas_anyhit_chain(
-            scene, static, mesh_id, inst_id, rays, tmin, live, tmax_reg,
-            occ,
-        )
-    return occ
-
-
-def _use_perlane(static: SceneStatic, p: int, k: int,
-                 tier: str = "primary") -> bool:
-    """Static dispatch to the two-level per-lane tier (TPU-only, like the
-    megakernel): always under traversal='perlane' (and under 'auto' when
-    the scene-build heuristic resolved to it — accel.resolve_auto_tier's
-    measured preset table); for the PRIMARY (peeled j=0) sweeps under
-    traversal='hybrid' — per-lane walks win on coherent full-width waves
-    (measured 1.26-1.47x over the consensus megakernel) but are ~neutral
-    on scattered bounce waves, where the per-treelet entry overhead
-    dominates (docs/roadmap.md round-3b)."""
-    from raytpu.ops.mega import BLOCK_PACKETS
-    from raytpu.ops.traverse_pallas import PACKET_K
-
-    if static.traversal == "perlane":
-        pass
-    elif static.traversal == "auto" and static.auto_tier == "perlane":
-        pass
-    elif static.traversal == "hybrid" and tier == "primary":
-        pass
-    else:
-        return False
-    if static.perlane_layout is None or not static.has_bvh:
-        return False
-    if k != PACKET_K or p % BLOCK_PACKETS != 0:
-        return False
-    import jax
-
-    return jax.default_backend() == "tpu"
-
-
-def _use_mega(static: SceneStatic, p: int, k: int) -> bool:
-    """Static dispatch to the persistent chunk-sweep megakernel.
-
-    TPU-only: the mega path needs compiled DMA/alias semantics (interpret
-    mode does not model aliased block revisits); the chained per-chunk path
-    below is the CPU/interpret reference implementation."""
-    from raytpu.ops.mega import BLOCK_PACKETS
-    from raytpu.ops.traverse_pallas import PACKET_K
-
-    if static.traversal not in ("auto", "mega", "hybrid"):
-        return False
-    if static.mega_layout is None or not static.has_bvh:
-        return False
-    if k != PACKET_K or p % BLOCK_PACKETS != 0:
-        return False
-    import jax
-
-    return jax.default_backend() == "tpu"
-
-
-def _all_pallas(static: SceneStatic, k: int) -> bool:
-    """True when every traversal mesh can run the Pallas chained path."""
-    from raytpu.ops.traverse_pallas import PACKET_K
-
-    if static.traversal == "pallas":
-        # forced (interpret mode off-TPU); still needs a BVH and the
-        # kernel's packet width
-        return static.has_bvh and k == PACKET_K
-    if static.traversal not in ("auto", "hybrid") or not static.has_bvh:
-        return False
-    if k != PACKET_K or not static.mesh_pallas_ok:
-        return False
-    if not all(static.mesh_pallas_ok):
-        return False
-    import jax
-
-    return jax.default_backend() == "tpu"
-
-
-def _use_pallas(static: SceneStatic, mesh_id: int, k: int) -> bool:
-    """Static dispatch: Pallas kernel when allowed, resident, and the
-    packet width matches the kernel's register layout."""
-    from raytpu.ops.traverse_pallas import PACKET_K
-
-    if static.traversal == "pallas":
-        return True  # forced (interpret-mode off-TPU)
-    if static.traversal not in ("auto", "hybrid"):
-        return False
-    if k != PACKET_K or not static.mesh_pallas_ok:
-        return False
-    import jax
-
-    return static.mesh_pallas_ok[mesh_id] and jax.default_backend() == "tpu"
-
-
-def any_hit(
-    scene: DeviceScene,
-    static: SceneStatic,
-    o: jnp.ndarray,
-    d: jnp.ndarray,
-    tmin: float,
-    tmax: jnp.ndarray,  # (R,)
-) -> jnp.ndarray:
-    """Occlusion query over all instances (shadow rays,
-    ``src/shader.rgen:111-112``)."""
-    r = o.shape[0]
-    occluded = jnp.zeros((r,), bool)
-    for inst_id, mesh_id in static.traversal_list:
-        o_obj, d_obj = _to_object_space(scene.w2o[inst_id], o, d)
-        # already-occluded lanes get tmax=0 → trivially rejected everywhere
-        lane_tmax = jnp.where(occluded, 0.0, tmax)
-        if static.has_bvh:
-            from raytpu.ops.traverse import bvh_anyhit
-
-            occ = bvh_anyhit(scene, static, mesh_id, o_obj, d_obj, tmin, lane_tmax)
-        else:
-            start, count = static.mesh_prim_ranges[mesh_id]
-            occ = brute_anyhit(
-                o_obj,
-                d_obj,
-                scene.tri_v0[start : start + count],
-                scene.tri_e1[start : start + count],
-                scene.tri_e2[start : start + count],
-                tmin,
-                lane_tmax,
-            )
         occluded = occluded | occ
     return occluded

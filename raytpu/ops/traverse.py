@@ -1,6 +1,6 @@
 """Vectorized stackless BVH traversal (the `traceRayEXT` compute kernel).
 
-TPU-native replacement for the GPU's ray-traversal hardware
+Software replacement for the ray-traversal hardware behind ``traceRayEXT``
 (``src/shader.rgen:86,111``): a **threaded** (skip-link) BVH walked by the
 whole ray wave in lock-step. Per-ray state is one node index; each
 `lax.while_loop` iteration performs one node visit for every ray:
@@ -13,11 +13,11 @@ whole ray wave in lock-step. Per-ray state is one node index; each
 * terminated rays park at the sentinel (``node == end``) and the loop exits
   when every lane is parked.
 
-Everything is gathers + elementwise VPU math — no per-ray stacks, no
-scatters, no dynamic shapes — the formulation XLA maps well onto (8, 128)
-vector tiles. A Pallas variant with VMEM-resident nodes lives in
-``traverse_pallas.py``; this XLA version is the portable reference and the
-CPU-test path.
+Everything is gathers + elementwise math — no per-ray stacks, no
+scatters, no dynamic shapes. The trip count is the longest walk in the
+batch, so the renderer uses the packet walk (``ops/packet.py``) and the GPU
+kernel (``ops/bvh_kernel.py``) instead; this per-ray version is the test
+reference for the BVH builders.
 
 Any-hit ("shadow") traversal additionally parks a lane the moment it finds
 any intersection — the analog of

@@ -1,11 +1,11 @@
 """Component-SoA 3-vector math.
 
-TPU layout rule: an array whose minor axis is 3 tiles onto (8, 128) vector
-registers using 3 of 128 lanes — and any op that changes such a layout
-(transpose, component slice feeding a kernel) materializes a relayout
-measured at ~7 ms for a frame's rays. The wave path therefore represents
-every 3-vector as a **tuple of three full-width arrays** (x, y, z), each
-tiling perfectly, with all geometry math written componentwise.
+Layout rule: an array whose minor axis is 3 wastes most of each vector
+tile, and any op that changes such a layout (transpose, component slice
+feeding a kernel) materializes a copy of a frame's rays. The wave path
+therefore represents every 3-vector as a **tuple of three full-width
+arrays** (x, y, z), contiguous per component, with all geometry math
+written componentwise — the layout the GPU traversal kernel also reads.
 
 A ``Vec3`` is just ``tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]`` — plain
 pytrees, no wrapper class, so they pass through ``lax`` control flow

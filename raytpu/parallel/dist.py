@@ -1,22 +1,21 @@
 """Multi-chip rendering: pixel-tile sharding over a device mesh.
 
 The reference is strictly single-GPU (one queue, ``src/main.cpp:1017-1024``);
-the TPU-native scale axis is rays — embarrassingly parallel — so raytpu
-shards whole **tile rows of the 32×32 tile-major packet stream** across
-chips with ``shard_map`` over a 1-D ``jax.sharding.Mesh`` (SURVEY.md §5):
-every device runs the identical single-chip hot path on its packet slice
-and detiles its own contiguous image row slab. Scene data (BVH + triangles
-+ skybox, ≤ a few hundred MB) is replicated per chip; no collective is
+the scale axis here is rays — embarrassingly parallel — so raytpu shards
+whole **tile rows of the 32×32 tile-major packet stream** across devices
+with ``shard_map`` over a 1-D ``jax.sharding.Mesh`` (SURVEY.md §5): every
+device runs the identical single-device hot path on its packet slice and
+detiles its own contiguous image row slab. Scene data (BVH + triangles +
+skybox, ≤ a few hundred MB) is replicated per device; no collective is
 needed inside a frame — the frame stays row-sharded, and XLA emits an
-all-gather over ICI only if a consumer asks for the replicated image.
+all-gather only if a consumer asks for the replicated image. A 1-D mesh
+suits cards that reach each other at the same rate.
 
-For scenes exceeding per-chip HBM, the extension point is BVH sharding with
-ring-passed ray queues (ring-attention analog) — documented, not needed by
-any reference config.
+For scenes exceeding one device's memory, the extension point is BVH
+sharding with passed ray queues — documented, not needed by any preset.
 
 Testable without hardware: an 8-device CPU mesh via
-``--xla_force_host_platform_device_count=8`` (tests/conftest.py) — the
-driver's ``dryrun_multichip`` uses the same path.
+``--xla_force_host_platform_device_count=8`` (tests/conftest.py).
 """
 
 from __future__ import annotations
@@ -54,16 +53,15 @@ def render_frame_sharded(
 
     Shards the same 32×32 tile-major packet stream the single-chip
     ``render_frame`` traces (``integrator._tiled_pixels``), so every device
-    runs the identical hot path — Pallas/megakernel traversal, spp fold,
-    deferred sky — on its packet slice with the scene replicated; output is
+    runs the identical hot path — traversal, spp fold, deferred sky — on
+    its packet slice with the scene replicated; output is
     bit-identical to the single-device render. The multi-chip analog of one
     ``vkCmdTraceRaysKHR`` dispatch (``src/main.cpp:2620-2624``); the only
     cross-chip data movement is the final tile gather XLA emits for the
     assembled image.
     """
-    from raytpu.integrator import render_packets
+    from raytpu.integrator import PACKET_GRANULE, render_packets
     from raytpu.ops import vec3 as v3
-    from raytpu.ops.mega import BLOCK_PACKETS
 
     axis = mesh.axis_names[0]
     n_dev = mesh.devices.size
@@ -105,9 +103,9 @@ def render_frame_sharded(
         pxf = pxs.reshape(p, k)
         pyf = pys.reshape(p, k)
         actf = act.reshape(p, k)
-        # pad the local packet count to the kernels' DMA-block granule
-        # (padding packets are fully dead)
-        pad = (-p) % BLOCK_PACKETS
+        # pad the local packet count to the packet granule, as the
+        # single-device frame does (padding packets are fully dead)
+        pad = (-p) % PACKET_GRANULE
         if pad:
             pxf = jnp.concatenate([pxf, jnp.zeros((pad, k), pxf.dtype)])
             pyf = jnp.concatenate([pyf, jnp.zeros((pad, k), pyf.dtype)])

@@ -1,32 +1,40 @@
 """Scene presets: the reference default + the five BASELINE benchmark configs.
 
 BASELINE.json / BASELINE.md define the benchmark matrix; each preset returns
-a fully-specified :class:`RenderConfig` (and loads stand-in assets where the
-reference blob is missing).
+a fully-specified :class:`RenderConfig`. Assets are the in-repo procedural
+stand-ins (``raytpu/io/genmesh.py``) unless ``resource_dir`` names a
+directory laid out like the reference's ``resources/``.
 """
 
 from __future__ import annotations
 
-import os
-from typing import List, Optional, Tuple
+from typing import Optional
 
 from raytpu.config import MaterialType, ObjectConfig, RenderConfig
-from raytpu.io.obj import Mesh, load_obj
+from raytpu.io.genmesh import GENERATED
 from raytpu.scene import Scene, load_scene
 
-REFERENCE_RESOURCES = "/root/reference/resources"
+# asset name → file or directory under a reference-style resource dir
+_FILES = {
+    "cube": "cube.obj",
+    "teapot": "teapot.obj",
+    "cube_scene": "cube_scene.obj",
+    "skybox_sea": "skybox_texture_sea",
+}
 
 
-def _res(resource_dir: Optional[str]) -> str:
-    return resource_dir or REFERENCE_RESOURCES
+def _asset(resource_dir: Optional[str], name: str) -> str:
+    if resource_dir:
+        return f"{resource_dir}/{_FILES[name]}"
+    return GENERATED + name
 
 
 def config1_cube(resource_dir: Optional[str] = None) -> RenderConfig:
     """BASELINE config 1: cube.obj, primary rays + hard shadows, static
     camera, 512×512 (CPU-checkable golden)."""
-    r = _res(resource_dir)
     return RenderConfig(
-        objects=(ObjectConfig(f"{r}/cube.obj", MaterialType.DIFFUSE, "static"),),
+        objects=(ObjectConfig(_asset(resource_dir, "cube"),
+                              MaterialType.DIFFUSE, "static"),),
         skybox_dir=None,
         width=512,
         height=512,
@@ -37,10 +45,10 @@ def config1_cube(resource_dir: Optional[str] = None) -> RenderConfig:
 
 def config2_teapot_mirror(resource_dir: Optional[str] = None) -> RenderConfig:
     """BASELINE config 2: teapot mirror + sea skybox, 2-bounce, 800×600."""
-    r = _res(resource_dir)
     return RenderConfig(
-        objects=(ObjectConfig(f"{r}/teapot.obj", MaterialType.MIRROR, "static"),),
-        skybox_dir=f"{r}/skybox_texture_sea",
+        objects=(ObjectConfig(_asset(resource_dir, "teapot"),
+                              MaterialType.MIRROR, "static"),),
+        skybox_dir=_asset(resource_dir, "skybox_sea"),
         width=800,
         height=600,
         samples_per_pixel=4,
@@ -51,12 +59,12 @@ def config2_teapot_mirror(resource_dir: Optional[str] = None) -> RenderConfig:
 def config3_refract(resource_dir: Optional[str] = None) -> RenderConfig:
     """BASELINE config 3: cube_scene.obj refractive glass (Snell + TIR),
     3-bounce, 1280×720."""
-    r = _res(resource_dir)
     return RenderConfig(
         objects=(
-            ObjectConfig(f"{r}/cube_scene.obj", MaterialType.REFRACTIVE, "static"),
+            ObjectConfig(_asset(resource_dir, "cube_scene"),
+                         MaterialType.REFRACTIVE, "static"),
         ),
-        skybox_dir=f"{r}/skybox_texture_sea",
+        skybox_dir=_asset(resource_dir, "skybox_sea"),
         width=1280,
         height=720,
         samples_per_pixel=4,
@@ -71,13 +79,14 @@ def config4_highpoly(resource_dir: Optional[str] = None) -> RenderConfig:
     ``armadillo.obj`` is a missing blob; the generated stand-in is used
     (``raytpu/io/genmesh.py``). The mirror teapot stays as the center mesh
     like the reference default (``include/config.h:6-16``)."""
-    r = _res(resource_dir)
     return RenderConfig(
         objects=(
-            ObjectConfig(f"{r}/teapot.obj", MaterialType.MIRROR, "spin"),
-            ObjectConfig("generated://armadillo", MaterialType.DIFFUSE, "orbit"),
+            ObjectConfig(_asset(resource_dir, "teapot"),
+                         MaterialType.MIRROR, "spin"),
+            ObjectConfig(GENERATED + "armadillo", MaterialType.DIFFUSE,
+                         "orbit"),
         ),
-        skybox_dir=f"{r}/skybox_texture_sea",
+        skybox_dir=_asset(resource_dir, "skybox_sea"),
         width=1920,
         height=1080,
         samples_per_pixel=4,
@@ -88,23 +97,18 @@ def config4_highpoly(resource_dir: Optional[str] = None) -> RenderConfig:
 def config5_flythrough(resource_dir: Optional[str] = None) -> RenderConfig:
     """BASELINE config 5: interactive flythrough — mixed reflect/refract
     scene, per-frame re-trace, 60 FPS target, 1920×1080."""
-    r = _res(resource_dir)
     return RenderConfig(
         objects=(
-            ObjectConfig(f"{r}/teapot.obj", MaterialType.MIRROR, "spin"),
-            ObjectConfig(f"{r}/cube.obj", MaterialType.REFRACTIVE, "orbit"),
+            ObjectConfig(_asset(resource_dir, "teapot"),
+                         MaterialType.MIRROR, "spin"),
+            ObjectConfig(_asset(resource_dir, "cube"),
+                         MaterialType.REFRACTIVE, "orbit"),
         ),
-        skybox_dir=f"{r}/skybox_texture_sea",
+        skybox_dir=_asset(resource_dir, "skybox_sea"),
         width=1920,
         height=1080,
         samples_per_pixel=1,
         max_bounce_count=3,
-        # chunk_tris was pinned to 2048 in the leaf_size-4 era (fine
-        # chunks shortened the divergent spp=1 bounce walks: 36.6 -> 34.1
-        # same-session, tools/r4_finechunk). At leaf_size 7 the optimum
-        # flipped back to unchunked small meshes (tools/r7_c5chunk, same
-        # session: 1024 -> 17.67, 2048 -> 17.50, >=3072 i.e. one chunk
-        # per mesh -> 17.19 ms), so the pin is gone.
     )
 
 
@@ -122,13 +126,14 @@ def reference_scene(resource_dir: Optional[str] = None) -> RenderConfig:
     """The reference's shipped compile-time default (``include/config.h``):
     mirror teapot center + diffuse armadillo(-standin) orbiting, sea skybox,
     800×600, 4 spp, 63 bounces."""
-    r = _res(resource_dir)
     return RenderConfig(
         objects=(
-            ObjectConfig(f"{r}/teapot.obj", MaterialType.MIRROR, "spin"),
-            ObjectConfig("generated://armadillo", MaterialType.DIFFUSE, "orbit"),
+            ObjectConfig(_asset(resource_dir, "teapot"),
+                         MaterialType.MIRROR, "spin"),
+            ObjectConfig(GENERATED + "armadillo", MaterialType.DIFFUSE,
+                         "orbit"),
         ),
-        skybox_dir=f"{r}/skybox_texture_sea",
+        skybox_dir=_asset(resource_dir, "skybox_sea"),
         width=800,
         height=600,
         samples_per_pixel=4,
@@ -141,7 +146,7 @@ PRESETS["reference"] = reference_scene
 
 def load_preset_scene(name_or_config, highpoly_depth: int = 7) -> Scene:
     """Resolve a preset name (or a RenderConfig) into a loaded Scene,
-    materializing ``generated://`` meshes."""
+    materializing ``generated://`` assets."""
     if isinstance(name_or_config, str):
         if name_or_config not in PRESETS:
             raise KeyError(
@@ -150,13 +155,4 @@ def load_preset_scene(name_or_config, highpoly_depth: int = 7) -> Scene:
         config = PRESETS[name_or_config]()
     else:
         config = name_or_config
-
-    meshes: List[Mesh] = []
-    for obj in config.objects:
-        if obj.path.startswith("generated://"):
-            from raytpu.io.genmesh import armadillo_standin
-
-            meshes.append(armadillo_standin(depth=highpoly_depth))
-        else:
-            meshes.append(load_obj(obj.path))
-    return load_scene(config, meshes=meshes)
+    return load_scene(config, highpoly_depth=highpoly_depth)

@@ -8,13 +8,13 @@ and framebuffer conversion — the frame-loop layer (L5) of the reference
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional
 
 import jax.numpy as jnp
 import numpy as np
 
 from raytpu.camera import Camera
-from raytpu.device_scene import DeviceScene, SceneStatic, build_device_scene
+from raytpu.device_scene import build_device_scene
 from raytpu.integrator import RenderStatic, render_frame
 from raytpu.scene import AnimationState, Scene
 
@@ -30,14 +30,11 @@ class Renderer:
         self.camera = camera or Camera(scene.config.camera_position)
         self.device_scene, self.static = build_device_scene(scene)
         if scene.config.bvh_builder != "brute" and scene.config.traversal != "brute":
-            try:
-                from raytpu.accel import attach_bvh
+            from raytpu.accel import attach_bvh
 
-                self.device_scene, self.static = attach_bvh(
-                    self.device_scene, self.static, scene
-                )
-            except ImportError:
-                pass  # accel not built yet — brute-force path
+            self.device_scene, self.static = attach_bvh(
+                self.device_scene, self.static, scene
+            )
         self.render_static = RenderStatic.from_config(scene.config)
         self.animation = AnimationState(scene.instances)
         self.time_param = 0.0

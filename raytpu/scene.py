@@ -8,7 +8,7 @@ Reference analogs:
   offsets to the shaders (``orbitingObjectPrimitiveOffset = indexList[0].size()/3``,
   ``orbitingObjectVertexOffset = attrib[0].vertices.size()*2``,
   ``src/main.cpp:1872-1873``; consumed at ``src/shader.rchit:50-61``). raytpu
-  keeps SoA arrays (TPU-friendly layout) but preserves the same contract:
+  keeps SoA arrays but preserves the same contract:
   concatenated ``positions``/``normals``/``triangles`` with per-mesh
   ``vertex_offset``/``primitive_offset``, and triangle indices rebased so the
   flat arrays are directly gatherable.
@@ -21,7 +21,7 @@ Reference analogs:
   design of the reference); the orbiting mesh circles radius 10 about
   ``(0, 0, -5)`` as a pure function of ``timeParam``. :class:`AnimationState`
   reproduces both; per-frame "TLAS refit" is just handing the new (N, 3, 4)
-  transform arrays to the jitted render — no rebuild, no sync, the TPU-first
+  transform arrays to the jitted render — no rebuild, no sync, the
   answer to the reference's synchronous refit+fence each frame
   (``src/main.cpp:2848-2861,730-778``).
 """
@@ -34,8 +34,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from raytpu.config import MaterialType, ObjectConfig, RenderConfig
-from raytpu.io.obj import Mesh, load_obj
+from raytpu.config import MaterialType, RenderConfig
+from raytpu.io.obj import Mesh
 
 
 # ---------------------------------------------------------------------------
@@ -222,11 +222,17 @@ def load_scene(
     config: RenderConfig,
     meshes: Optional[Sequence[Mesh]] = None,
     skybox: Optional[np.ndarray] = None,
+    highpoly_depth: int = 7,
 ) -> Scene:
-    """Build a :class:`Scene` from a config, loading assets from disk unless
-    pre-loaded ``meshes``/``skybox`` are injected (tests do this)."""
+    """Build a :class:`Scene` from a config, loading assets unless
+    pre-loaded ``meshes``/``skybox`` are injected (tests do this).
+    ``generated://`` paths are the procedural stand-ins
+    (``raytpu/io/genmesh.py``); ``highpoly_depth`` sizes the armadillo."""
+    from raytpu.io import genmesh
+
     if meshes is None:
-        meshes = [load_obj(obj.path) for obj in config.objects]
+        meshes = [genmesh.load_mesh(obj.path, highpoly_depth)
+                  for obj in config.objects]
     meshes = list(meshes)
     if len(meshes) != len(config.objects):
         raise ValueError("meshes/objects length mismatch")
@@ -242,9 +248,7 @@ def load_scene(
     ]
 
     if skybox is None and config.skybox_dir is not None:
-        from raytpu.io.image import load_skybox
-
-        skybox = load_skybox(config.skybox_dir)
+        skybox = genmesh.load_skybox(config.skybox_dir, config.skybox_size)
 
     return Scene(
         geometry=assemble_geometry(meshes),

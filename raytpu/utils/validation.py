@@ -8,14 +8,10 @@ colored reporting (``throwExceptionVulkanAPI`` analog:
 
 Enabled via ``RenderConfig.validation=True``: scene arrays are checked at
 upload, and every rendered frame is checked for NaN/Inf and wildly
-out-of-range radiance before it leaves the renderer. Additionally,
-``interpret_kernels()`` forces Pallas interpret mode for kernel debugging
-(the debug-printf analog).
+out-of-range radiance before it leaves the renderer.
 """
 
 from __future__ import annotations
-
-import contextlib
 
 import numpy as np
 
@@ -87,12 +83,3 @@ def jit_guard(arrays, context: str):
 
     jax.debug.callback(report, bad, ordered=False)
     return arrays
-
-
-@contextlib.contextmanager
-def interpret_kernels():
-    """Force Pallas interpret mode (kernel debugging; debug-printf analog)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    with pltpu.force_tpu_interpret_mode():
-        yield

@@ -6,9 +6,9 @@ Run manually (NOT collected by pytest):
 
 Each golden is rendered by the vectorized float64 oracle
 (``tests/oracle_vec.py``, pinned to the scalar oracle by
-``tests/test_oracle_vec.py``) at 128² over the reference assets —
-big enough that a normal-transform or TIR regression shifts SSIM
-(VERDICT round-1 item 7), small enough to live in-repo (~100 KB each).
+``tests/test_oracle_vec.py``) at 128² over the in-repo stand-in assets
+(``raytpu/io/genmesh.py``) — big enough that a normal-transform or TIR
+regression shifts SSIM, small enough to live in-repo (~100 KB each).
 ``tests/test_goldens.py`` compares raytpu renders against these files.
 """
 
@@ -24,30 +24,28 @@ SIZE = 128
 
 def golden_cases():
     """(name, objects, bounces, spp) — config2/config3/config4-class scenes
-    over the reference assets (cube_scene for refraction, teapot for the
-    mirror + high-curvature normals)."""
+    over the stand-ins (cube_scene for refraction, teapot for the mirror +
+    curved normals)."""
     from raytpu.config import MaterialType, ObjectConfig
+    from raytpu.io.genmesh import GENERATED as g
 
-    r = "/root/reference/resources"
     return [
         (
             "teapot_mirror",
-            [ObjectConfig(f"{r}/teapot.obj", MaterialType.MIRROR, "static")],
+            [ObjectConfig(g + "teapot", MaterialType.MIRROR, "static")],
             2, 1,
         ),
         (
             "cube_scene_refract",
-            [ObjectConfig(f"{r}/cube_scene.obj", MaterialType.REFRACTIVE,
+            [ObjectConfig(g + "cube_scene", MaterialType.REFRACTIVE,
                           "static")],
             3, 1,
         ),
         (
             "teapot_mirror_cube_diffuse",
             [
-                ObjectConfig(f"{r}/teapot.obj", MaterialType.MIRROR,
-                             "static"),
-                ObjectConfig(f"{r}/cube.obj", MaterialType.DIFFUSE,
-                             "orbit"),
+                ObjectConfig(g + "teapot", MaterialType.MIRROR, "static"),
+                ObjectConfig(g + "cube", MaterialType.DIFFUSE, "orbit"),
             ],
             3, 1,
         ),

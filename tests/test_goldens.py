@@ -1,9 +1,9 @@
-"""Golden-image fidelity at realistic scale (VERDICT round-1 item 7).
+"""Golden-image fidelity at realistic scale.
 
 Compares raytpu full renders at 128² against in-repo goldens produced by
 the vectorized float64 oracle (``tests/gen_goldens.py``) over the real
-reference assets — teapot mirror (catches normal-transform regressions on
-high-curvature geometry, ``src/shader.rchit:93-94``) and cube_scene
+in-repo stand-in assets — teapot mirror (catches normal-transform
+regressions on curved geometry, ``src/shader.rchit:93-94``) and cube_scene
 refraction (catches Snell/TIR regressions, ``src/shader.rgen:139-177``).
 Regenerate with ``python -m tests.gen_goldens`` only when semantics
 intentionally change.

@@ -14,9 +14,8 @@ import jax.numpy as jnp
 import pytest
 
 from raytpu.config import MaterialType, ObjectConfig, RenderConfig
-from raytpu.device_scene import build_device_scene
 from raytpu.integrator import RenderStatic, hash_random, render_frame
-from raytpu.io.obj import load_obj_numpy
+from raytpu.io.genmesh import load_mesh
 from raytpu.render import Renderer
 from raytpu.scene import load_scene
 
@@ -64,7 +63,7 @@ def _scene_and_oracle(resources_dir, objects, spp=1, max_bounces=3, size=24,
         max_bounce_count=max_bounces,
         skybox_filter="bilinear",  # the oracle implements exact bilinear
     )
-    meshes = [load_obj_numpy(o.path) for o in objects]
+    meshes = [load_mesh(o.path) for o in objects]
     scene = load_scene(cfg, meshes=meshes, skybox=sky)
     renderer = Renderer(scene)
     renderer.set_transforms(0.0)
@@ -193,24 +192,24 @@ def test_ray_chunking_equivalent(resources_dir):
     np.testing.assert_allclose(img_full, img_chunked, atol=1e-6)
 
 
-def test_hybrid_traversal_matches_auto(resources_dir):
-    """traversal='hybrid' (per-lane primary + mega bounce tier split on
-    TPU) must render bit-identically to 'auto' — off-TPU both fall back
-    to the same chained/packet path, pinning the dispatch plumbing and
-    the peeled-primary iteration (ops/trace.py:_use_perlane)."""
+def test_kernel_traversal_matches_xla(resources_dir):
+    """The whole frame through the GPU traversal kernel (run by the Pallas
+    interpreter here) renders what the XLA packet walk renders — the
+    dispatch plumbing, the in-kernel instance loop and the kernel's
+    normal interpolation, end to end."""
     objects = [
-        ObjectConfig(f"{resources_dir}/cube.obj", MaterialType.MIRROR,
-                     "static"),
+        ObjectConfig(f"{resources_dir}/teapot.obj", MaterialType.MIRROR,
+                     "spin"),
         ObjectConfig(f"{resources_dir}/cube.obj", MaterialType.DIFFUSE,
                      "orbit"),
     ]
     base, _, _ = _scene_and_oracle(resources_dir, objects, spp=2,
                                    max_bounces=2, size=16)
-    img_auto = base.render_np()
-    hyb, _, _ = _scene_and_oracle(resources_dir, objects, spp=2,
-                                  max_bounces=2, size=16)
-    hyb.static = dataclasses.replace(hyb.static, traversal="hybrid")
-    np.testing.assert_array_equal(img_auto, hyb.render_np())
+    assert base.static.traversal == "xla"
+    img_xla = base.render_np()
+    base.static = dataclasses.replace(base.static, traversal="kernel",
+                                      interpret=True)
+    np.testing.assert_allclose(base.render_np(), img_xla, atol=1e-5)
 
 
 def test_validation_jit_guard_fires(resources_dir, monkeypatch, capsys):
@@ -247,8 +246,8 @@ def test_validation_jit_guard_fires(resources_dir, monkeypatch, capsys):
 
 
 def test_three_instance_scene_matches_oracle(resources_dir):
-    """Instance-count scaling: the traversal layer iterates a flattened
-    (instance, chunk) entry list (a grid axis in the megakernel), so >2
+    """Instance-count scaling: the traversal layer iterates the instance
+    list (inside the GPU kernel, or one walk each on the XLA path), so >2
     instances — beyond the reference's fixed two (include/config.h:6-16)
     — must shade correctly across all material types at once."""
     from raytpu.utils import ssim
@@ -278,16 +277,15 @@ def test_compact_wavefront_bit_identical(resources_dir):
     not a recompute; _wave_budget must never emit one). The frame is
     sized so the wave budget is a real subset (128 packets → budget 64).
     """
-    from raytpu.integrator import _wave_budget
-    from raytpu.ops.mega import SEG_PACKETS
+    from raytpu.integrator import PACKET_GRANULE, _wave_budget
 
     assert _wave_budget(128) == 64
     assert _wave_budget(64) == 0      # too small → compaction disabled
-    # divisor invariant over every SEG-multiple p up to a big wave
-    for p in range(SEG_PACKETS, 16384 + 1, SEG_PACKETS):
+    # divisor invariant over every granule multiple p up to a big wave
+    for p in range(PACKET_GRANULE, 16384 + 1, PACKET_GRANULE):
         b = _wave_budget(p)
         if b:
-            assert p % b == 0 and b % SEG_PACKETS == 0 and 2 * b <= p, p
+            assert p % b == 0 and b % PACKET_GRANULE == 0 and 2 * b <= p, p
     assert _wave_budget(320) == 64    # 128 (old ~p/4 round-up) doesn't
     assert _wave_budget(1920) == 384  # divide; the divisor rule does
     assert _wave_budget(8192) == 2048
@@ -302,7 +300,7 @@ def test_compact_wavefront_bit_identical(resources_dir):
         ),
         width=512, height=256, samples_per_pixel=1, max_bounce_count=3,
     )
-    meshes = [load_obj_numpy(o.path) for o in cfg.objects]
+    meshes = [load_mesh(o.path) for o in cfg.objects]
     scene = load_scene(cfg, meshes=meshes, skybox=sky)
     r = Renderer(scene)
     r.set_transforms(0.3)

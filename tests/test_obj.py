@@ -90,7 +90,8 @@ def test_smooth_normals_unit_length():
 
 
 def test_reference_cube(resources_dir):
-    # cube.obj: 24 duplicated vertices, 12 faces (resources/cube.obj:1-2)
+    # cube.obj stand-in: 24 duplicated vertices, 12 faces, like the
+    # reference's resources/cube.obj:1-2
     m = load_obj_numpy(f"{resources_dir}/cube.obj")
     assert m.num_vertices == 24
     assert m.num_triangles == 12
@@ -102,16 +103,24 @@ def test_reference_cube(resources_dir):
 
 
 def test_reference_teapot(resources_dir):
+    # the stand-in: a closed surface of revolution (the reference's teapot
+    # has 1202 v / 2256 f)
     m = load_obj_numpy(f"{resources_dir}/teapot.obj")
-    assert m.num_vertices == 1202
-    assert m.num_triangles == 2256
+    assert m.num_vertices == 1154
+    assert m.num_triangles == 2304
     m.validate()
+    # closed: every edge is shared by exactly two faces
+    e = np.sort(np.concatenate([m.triangles[:, [0, 1]], m.triangles[:, [1, 2]],
+                                m.triangles[:, [2, 0]]]), axis=1)
+    _, counts = np.unique(e, axis=0, return_counts=True)
+    assert (counts == 2).all()
 
 
 def test_reference_cube_scene(resources_dir):
-    # 8 'o' objects concatenated into one soup (src/main.cpp:1640-1654 concat)
+    # one soup of several objects (src/main.cpp:1640-1654 concat); the
+    # stand-in has 45 v / 42 f (the reference's cube_scene 44 v / 42 f)
     m = load_obj_numpy(f"{resources_dir}/cube_scene.obj")
-    assert m.num_triangles > 0
+    assert (m.num_vertices, m.num_triangles) == (45, 42)
     m.validate()
 
 

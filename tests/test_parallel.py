@@ -9,20 +9,16 @@ import numpy as np
 import pytest
 
 from raytpu.config import MaterialType, ObjectConfig, RenderConfig
-from raytpu.integrator import RenderStatic, render_frame
-from raytpu.io.obj import load_obj_numpy
+from raytpu.integrator import render_frame
+from raytpu.io.genmesh import load_mesh
 from raytpu.parallel import make_mesh, render_sharded
 from raytpu.render import Renderer
 from raytpu.scene import load_scene
 
 
 @pytest.fixture(scope="module")
-def small_scene(request):
-    res = "/root/reference/resources"
-    import os
-
-    if not os.path.isdir(res):
-        pytest.skip("reference resources not mounted")
+def small_scene(resources_dir):
+    res = resources_dir
     sky = np.zeros((6, 4, 4, 3), np.float32)
     sky[:] = np.asarray([0.3, 0.5, 0.7], np.float32)
     cfg = RenderConfig(
@@ -35,7 +31,7 @@ def small_scene(request):
         samples_per_pixel=2,
         max_bounce_count=3,
     )
-    meshes = [load_obj_numpy(o.path) for o in cfg.objects]
+    meshes = [load_mesh(o.path) for o in cfg.objects]
     scene = load_scene(cfg, meshes=meshes, skybox=sky)
     r = Renderer(scene)
     r.set_transforms(0.25)
@@ -63,17 +59,14 @@ def test_sharded_matches_single_device(small_scene):
 
 
 def test_sharded_hits_pallas_when_forced(small_scene):
-    """Forcing traversal='pallas' (interpret mode off-TPU) must keep the
-    sharded path on the kernel hot path — packets reach the Pallas chain
-    with the kernel's native width, not a fallback."""
+    """Forcing the traversal kernel (Pallas interpreter here) keeps the
+    sharded path on the kernel: each shard's padded local wave goes
+    through the kernel and the frame matches the single-device one."""
     import dataclasses
 
-    from raytpu.ops.trace import _all_pallas
-    from raytpu.ops.traverse_pallas import PACKET_K
-
     r = small_scene
-    static_forced = dataclasses.replace(r.static, traversal="pallas")
-    assert _all_pallas(static_forced, PACKET_K)
+    static_forced = dataclasses.replace(r.static, traversal="kernel",
+                                        interpret=True)
     mesh = make_mesh(2)
     img = np.asarray(
         render_sharded(r.device_scene, static_forced, r.render_static,
@@ -108,16 +101,12 @@ def test_sharded_output_actually_distributed(small_scene):
     assert len(img.sharding.device_set) == 8
 
 
-def test_sharded_config2_class_resolution():
+def test_sharded_config2_class_resolution(resources_dir):
     """Config2-class sharded render (teapot mirror + skybox, 256×192, 4spp,
-    2-bounce) — realistic tile-row padding / BLOCK_PACKETS interactions
+    2-bounce) — realistic tile-row padding / packet-granule interactions
     (height 192 = 6 tile rows over 8 devices → non-divisible shard heights),
-    asserting bit-identity vs single device (VERDICT r2 item 9)."""
-    res = "/root/reference/resources"
-    import os
-
-    if not os.path.isdir(res):
-        pytest.skip("reference resources not mounted")
+    asserting bit-identity vs single device."""
+    res = resources_dir
     from raytpu.io.image import load_skybox
 
     cfg = RenderConfig(
@@ -130,7 +119,7 @@ def test_sharded_config2_class_resolution():
         max_bounce_count=2,
         skybox_dir=f"{res}/skybox_texture_sea",
     )
-    meshes = [load_obj_numpy(o.path) for o in cfg.objects]
+    meshes = [load_mesh(o.path) for o in cfg.objects]
     sky = load_skybox(cfg.skybox_dir)
     scene = load_scene(cfg, meshes=meshes, skybox=sky)
     r = Renderer(scene)
@@ -164,73 +153,24 @@ def test_renderer_devices_config(small_scene):
     scene2.config = scene2.config.replace(devices=1)
 
 
-def test_sharded_raygen_bit_identity_on_tpu():
-    """TPU-gated (ADVICE r4): the sharded==single-device bit-identity
-    invariant with the fused Pallas raygen kernel ENGAGED. On the CPU
-    mesh 'auto' disables the kernel, so the other tests here only cover
-    the XLA raygen; this one runs the real kernel on the chip.
+@pytest.mark.gpu
+def test_sharded_matches_single_device_on_gpu():
+    """On the card: the sharded frame over every visible GPU equals the
+    single-device frame, with the traversal kernel compiled (on a one-card
+    machine the mesh has one device, which still runs dist.py's padding
+    and per-shard path)."""
+    import dataclasses
 
-    Two layers: (a) kernel-level — raygen_packed on a full wave vs the
-    same wave in BLOCK_PACKETS-sized slices (the sharded path's padded
-    local waves) must be BITWISE equal on TPU (one uniform RG_BP codegen
-    regardless of grid count — the ops/raygen.py invariant); (b) frame-
-    level — render_sharded over the available mesh vs render_frame,
-    bitwise (on the one-chip environment that is a 1-device mesh, which
-    still exercises dist.py's padding + per-shard raygen path)."""
-    if jax.default_backend() != "tpu":
-        pytest.skip("raygen kernel is TPU-only under 'auto'")
-    import os
+    from raytpu.presets import load_preset_scene, PRESETS
 
-    import jax.numpy as jnp
-
-    from raytpu.io.image import load_skybox
-    from raytpu.ops import raygen
-    from raytpu.ops.mega import BLOCK_PACKETS
-    from raytpu.ops.traverse_pallas import PACKET_K
-
-    # (a) kernel-level wave-size bitwise independence on real hardware
-    k = PACKET_K
-    p = BLOCK_PACKETS * 4
-    rng = np.random.default_rng(11)
-    px = jnp.asarray(rng.integers(0, 640, size=(p, k)).astype(np.float32))
-    py = jnp.asarray(rng.integers(0, 480, size=(p, k)).astype(np.float32))
-    camera = jnp.asarray(
-        [[1.0, 2.0, 3.0], [0.8, 0.0, 0.6], [0.0, 1.0, 0.0],
-         [-0.6, 0.0, 0.8]], jnp.float32)
-    s_row = jnp.asarray(rng.integers(0, 4, size=(p,)).astype(np.float32))
-    full = np.asarray(raygen.raygen_packed(camera, s_row, px, py, 4, 640, 480))
-    bp = BLOCK_PACKETS
-    slices = [
-        np.asarray(raygen.raygen_packed(
-            camera, s_row[i:i + bp], px[i:i + bp], py[i:i + bp], 4, 640, 480))
-        for i in range(0, p, bp)
-    ]
-    np.testing.assert_array_equal(full, np.concatenate(slices, axis=1))
-
-    # (b) frame-level sharded-vs-single bitwise with the kernel engaged
-    res = "/root/reference/resources"
-    if not os.path.isdir(res):
-        pytest.skip("reference resources not mounted")
-    cfg = RenderConfig(
-        objects=(
-            ObjectConfig(f"{res}/teapot.obj", MaterialType.MIRROR, "spin"),
-        ),
-        width=256, height=192, samples_per_pixel=4, max_bounce_count=2,
-        skybox_dir=f"{res}/skybox_texture_sea",
-    )
-    meshes = [load_obj_numpy(o.path) for o in cfg.objects]
-    scene = load_scene(cfg, meshes=meshes, skybox=load_skybox(cfg.skybox_dir))
-    r = Renderer(scene)
+    cfg = PRESETS["config2"]().replace(width=256, height=192,
+                                       skybox_size=256)
+    r = Renderer(load_preset_scene(cfg))
     r.set_transforms(0.5)
-    from raytpu.integrator import _tiled_pixels
-
-    (px_f, _), _, _ = _tiled_pixels(r.render_static)
-    assert raygen.use_raygen_kernel(
-        r.render_static.raygen,
-        px_f.shape[0] * r.render_static.samples_per_pixel, PACKET_K)
+    assert r.static.traversal == "kernel"
     img_single = np.asarray(
         render_frame(r.device_scene, r.static, r.render_static,
-                     jnp.asarray(r.camera.basis())))
+                     r.camera.basis()))
     mesh = make_mesh(len(jax.devices()))
     img_sharded = np.asarray(
         render_sharded(r.device_scene, r.static, r.render_static,
@@ -238,24 +178,21 @@ def test_sharded_raygen_bit_identity_on_tpu():
     np.testing.assert_array_equal(img_sharded, img_single)
 
 
-def test_sharded_bench_mode():
-    """The multi-chip bench entry (`run_benchmark(devices=N)` behind
-    `RAYTPU_BENCH_DEVICES`) runs on a CPU mesh: shards the frame over all
-    8 virtual devices and reports sane timings (VERDICT r3 item 7)."""
-    res = "/root/reference/resources"
-    import os
-
-    if not os.path.isdir(res):
-        pytest.skip("reference resources not mounted")
+def test_sharded_bench_mode(resources_dir):
+    """The multi-device bench entry (`run_benchmark(devices=N)`) runs on a
+    CPU mesh: shards the frame over all 8 virtual devices and reports the
+    devices it ran on."""
+    res = resources_dir
     from raytpu.bench import run_benchmark
 
     cfg = RenderConfig(
         objects=(
             ObjectConfig(f"{res}/cube.obj", MaterialType.MIRROR, "static"),
         ),
-        skybox_dir=f"{res}/skybox_texture_test",
+        skybox_dir=f"{res}/skybox_texture_sea",
         width=64, height=64, samples_per_pixel=1, max_bounce_count=1,
     )
     r = run_benchmark(preset=cfg, frames=2, count=False, devices=8)
     assert r["devices"] == 8
+    assert r["platform"] == "cpu" and r["count"] == 8
     assert r["frame_ms"] > 0 and r["fps"] > 0
